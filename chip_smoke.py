@@ -1,0 +1,508 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (src/repro_torch) on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout; it needs one CUDA card and nvcc (the
+kernels are built from the checkout's sources at first use). Phases, in
+order; any failure ends the run with a non-zero exit and no result line:
+
+1. card    -- require CUDA, print the card's name and power limit, turn
+              TF32 off for float32 products and convolutions;
+2. build   -- compile every kernel of the package (one nvcc per source,
+              all at once) and print build seconds and ptxas usage;
+3. kernels -- hold each kernel against its plain PyTorch version run in
+              float32 on the same (bf16-rounded) inputs, on the
+              reference's test sweeps (both dtypes) and at h2o-danube's
+              shapes: |kernel - plain| <= 2e-5 + r |plain|, with r = 2^-8
+              (the rounding of a bf16 output) for bf16 outputs and 0 for
+              float32 ones; time kernel, plain version and one PyTorch
+              library call (a yardstick only) with CUDA events;
+4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
+              weights from --seed): batch 4, prompt 4160 (> the 4096
+              window), 32 generated tokens, through the kernels; check the
+              launch counts. Then teacher-force the same tokens through
+              the plain path in bf16 and, with the weights cast to
+              float32, through both paths in float32. In float32 the
+              kernel path must match the plain path to 1e-4 at every
+              position. In bf16 each path is held against float32: at no
+              position may the kernel path's largest logit error exceed
+              the plain path's by more than BF16_EXCESS_TOL, and its RMS
+              error over all logits may be at most BF16_RMS_RATIO times
+              the plain path's. Last, trace a few decode steps with
+              torch.profiler: device time and kernels per step, and the
+              device's idle share against the steady decode step;
+5. result  -- print the kernels' JSON line, then the device line.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM data sheet: HBM3 rate; dense bf16 tensor-core and fp32 CUDA-core
+# peaks (at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# the reference's kernel sweeps: tests/test_kernels.py:19-25 and :60-61
+FLASH_SWEEP = [  # B, S, H, K, d, causal, window
+    (2, 256, 4, 2, 64, True, None), (1, 384, 8, 8, 128, True, None),
+    (2, 200, 4, 1, 80, True, 96), (1, 128, 2, 2, 32, False, None),
+    (1, 130, 6, 2, 112, True, None)]
+DECODE_SWEEP = [(2, 512, 4, 2, 64), (1, 300, 8, 8, 128),  # B, W, H, K, d
+                (2, 1000, 4, 1, 80)]
+# the serve run: h2o-danube-1.8b, prompt longer than its 4096 window
+ARCH, BATCH, PROMPT, GEN = "h2o-danube-1.8b", 4, 4160, 32
+KERNEL_TOL = 2e-5          # float32, tests/test_kernels.py:33
+BF16_OUT_REL = 2.0 ** -8   # bf16's unit roundoff: an output's rounding
+LOGIT_TOL_F32 = 1e-4       # float32 logits, the port's CPU parity tests
+# bf16 logits against the float32 run, kernel path vs plain path: limits
+# set a little above the readings of full runs on the H100 (PERF.md)
+BF16_EXCESS_TOL = 0.05   # read: 0.0231
+BF16_RMS_RATIO = 1.02    # read: 0.9990
+PROFILE_STEPS = 4          # decode steps traced by torch.profiler
+DEVICE = "cuda"
+
+
+def _fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call of fn(i) over `reps` calls, by CUDA
+    events, after `warmup` calls."""
+    import torch
+    for i in range(warmup):
+        fn(i)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(flops: float, nbytes: float, dtype_name: str) -> tuple:
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _visible_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    total = 0
+    for i in range(S):
+        lo = 0 if window is None else max(0, i - window + 1)
+        hi = i + 1 if causal else S
+        total += hi - lo
+    return total
+
+
+def phase_card(torch) -> str:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        raise SystemExit(1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi.splitlines()[0]
+
+
+def phase_build(_build) -> None:
+    t0 = time.perf_counter()
+    builds = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{len(builds)} kernels (all nvcc runs in parallel)")
+    for b in builds.values():
+        print(f"  {b.name}: {b.seconds:.1f} s -> {b.library.name}")
+        for line in b.log.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"    {line.strip()}")
+
+
+def _bias(torch, valid):
+    """Additive float32 mask: 0 where valid, -1e30 elsewhere."""
+    return torch.full(valid.shape, -1e30, device=valid.device).masked_fill_(
+        valid, 0.0)
+
+
+def _randn(torch, gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def _held(torch, out, gold, case, dt) -> dict:
+    """`out` of a kernel against `gold`, its plain version run in float32
+    on the same inputs: |out - gold| <= KERNEL_TOL + r |gold|, where r
+    allows for the rounding of a bf16 output."""
+    rel = BF16_OUT_REL if out.dtype == torch.bfloat16 else 0.0
+    diff = (out.float() - gold).abs()
+    over = (diff - rel * gold.abs()).max().item()
+    return {"shape": list(case), "dtype": str(dt),
+            "max_abs_err": diff.max().item(), "over_rel": over,
+            "tol": f"{KERNEL_TOL} + {rel}|ref|", "ok": over <= KERNEL_TOL}
+
+
+def phase_kernels(torch, seed: int) -> list:
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    cfg = _h2o()
+    H, K, d, window = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.sliding_window)
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+
+    # -- flash attention (prefill) --
+    flash_cases = []
+    h2o_flash = (BATCH, PROMPT, H, K, d, True, window)
+    for dt in (torch.float32, torch.bfloat16):
+        for case in FLASH_SWEEP + [h2o_flash]:
+            B, S, Hc, Kc, dc, causal, win = case
+            q = _randn(torch, gen, (B, S, Hc, dc), dt)
+            k = _randn(torch, gen, (B, S, Kc, dc), dt)
+            v = _randn(torch, gen, (B, S, Kc, dc), dt)
+            o = fops.flash_attention(q, k, v, causal=causal, window=win)
+            torch.cuda.synchronize()
+            gold = flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal, window=win)
+            flash_cases.append(_held(torch, o, gold, case, dt))
+            del gold
+    q = _randn(torch, gen, (BATCH, PROMPT, H, d), torch.bfloat16)
+    k = _randn(torch, gen, (BATCH, PROMPT, K, d), torch.bfloat16)
+    v = _randn(torch, gen, (BATCH, PROMPT, K, d), torch.bfloat16)
+    f_ms = _time_ms(lambda i: fops.flash_attention(
+        q, k, v, causal=True, window=window), reps=10)
+    f_plain = _time_ms(lambda i: flash_attention_ref(
+        q, k, v, causal=True, window=window), reps=3, warmup=1)
+    pos = torch.arange(PROMPT, device=DEVICE)
+    dlt = pos[:, None] - pos[None, :]
+    allowed = (dlt >= 0) & (dlt < window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    f_lib = _time_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=allowed, enable_gqa=True), reps=5, warmup=1)
+    pairs = _visible_pairs(PROMPT, True, window)
+    f_bound, f_by = _bound(4.0 * BATCH * H * pairs * d,
+                           2 * q.nbytes + k.nbytes + v.nbytes, "bfloat16")
+    del q, k, v, qt, kt, vt, allowed
+
+    # -- decode attention --
+    decode_cases = []
+    last = PROMPT + GEN - 1            # the last decode step's position
+    slots = torch.arange(window, device=DEVICE)[None, :]
+    kv_pos = last - ((last - slots) % window)
+    ring = ((kv_pos >= 0) & (kv_pos <= last)).expand(BATCH, window)
+    h2o_decode = (BATCH, window, H, K, d)
+    for dt in (torch.float32, torch.bfloat16):
+        for case in DECODE_SWEEP + [h2o_decode]:
+            B, W, Hc, Kc, dc = case
+            q = _randn(torch, gen, (B, 1, Hc, dc), dt)
+            k = _randn(torch, gen, (B, W, Kc, dc), dt)
+            v = _randn(torch, gen, (B, W, Kc, dc), dt)
+            valid = (ring if case == h2o_decode else
+                     torch.rand((B, W), generator=gen, device=DEVICE) < 0.8)
+            bias = _bias(torch, valid)
+            o = dops.decode_attention(q, k, v, bias)
+            torch.cuda.synchronize()
+            gold = decode_attention_ref(q.float(), k.float(), v.float(),
+                                        bias)
+            decode_cases.append(_held(torch, o, gold, case, dt))
+    # time over 8 caches (8 x 42 MB, beyond the 50 MB L2), as the 24 layers'
+    # caches are cold when a decode step reaches them
+    n_sets = 8
+    q = _randn(torch, gen, (BATCH, 1, H, d), torch.bfloat16)
+    ks = [_randn(torch, gen, (BATCH, window, K, d), torch.bfloat16)
+          for _ in range(n_sets)]
+    vs = [_randn(torch, gen, (BATCH, window, K, d), torch.bfloat16)
+          for _ in range(n_sets)]
+    bias = _bias(torch, ring)
+    d_ms = _time_ms(lambda i: dops.decode_attention(
+        q, ks[i % n_sets], vs[i % n_sets], bias), reps=80, warmup=8)
+    d_plain = _time_ms(lambda i: decode_attention_ref(
+        q, ks[i % n_sets], vs[i % n_sets], bias), reps=40, warmup=8)
+    qt = q.transpose(1, 2)
+    mask = bias[:, None, None, :]
+    d_lib = _time_ms(lambda i: F.scaled_dot_product_attention(
+        qt, ks[i % n_sets].transpose(1, 2), vs[i % n_sets].transpose(1, 2),
+        attn_mask=mask, enable_gqa=True), reps=40, warmup=8)
+    d_bound, d_by = _bound(4.0 * BATCH * H * window * d,
+                           2 * q.nbytes + ks[0].nbytes + vs[0].nbytes
+                           + bias.nbytes, "bfloat16")
+    del ks, vs
+
+    bad = []
+    for name, cases in (("flash_attention", flash_cases),
+                        ("decode_attention", decode_cases)):
+        for c in cases:
+            print(f"  {name} {c['dtype']:>14} {str(c['shape']):<40} "
+                  f"max_abs_err {c['max_abs_err']:.3e}, beyond the "
+                  f"relative part {c['over_rel']:.3e} (tol {c['tol']})")
+            if not c.pop("ok"):
+                bad.append((name, c["shape"], c["dtype"], c["over_rel"]))
+    if bad:
+        _fail(f"kernels disagree with their plain versions: {bad}")
+    print(f"  flash_attention at {list(h2o_flash)} bf16: {f_ms:.4f} ms "
+          f"(plain {f_plain:.3f} ms, SDPA {f_lib:.4f} ms, bound "
+          f"{f_bound:.4f} ms by {f_by})")
+    print(f"  decode_attention at {list(h2o_decode)} bf16: {d_ms:.4f} ms "
+          f"(plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms, bound "
+          f"{d_bound:.4f} ms by {d_by})")
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
+         "launches": None, "max_abs_err": flash_cases[-1]["max_abs_err"],
+         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+         "bound_by": f_by, "library_ms": f_lib,
+         "shape": list(h2o_flash), "cases": flash_cases},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                   "decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/"
+                     "decode_attention.py:55",
+         "launches": None, "max_abs_err": decode_cases[-1]["max_abs_err"],
+         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
+         "bound_by": d_by, "library_ms": d_lib,
+         "shape": list(h2o_decode), "cases": decode_cases},
+    ]
+
+
+def _h2o():
+    from repro_torch.configs import get_config
+    return get_config(ARCH)
+
+
+def phase_serve(torch, seed: int, card: str) -> dict:
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    cfg = _h2o()
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (BATCH, PROMPT), device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(seed + 1))
+    torch.cuda.reset_peak_memory_stats()
+
+    fops.flash_attention.launches = 0
+    dops.decode_attention.launches = 0
+    tokens, stats, logits = serve(cfg, batch=BATCH, prompt_len=PROMPT,
+                                  gen=GEN, seed=seed, use_kernels=True,
+                                  device=DEVICE, params=params,
+                                  prompts=prompts)
+    launches = {"flash_attention": fops.flash_attention.launches,
+                "decode_attention": dops.decode_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * (GEN - 1)}
+    print(f"  launches {launches} (expected {want})")
+    if launches != want:
+        _fail(f"serve launched {launches}, expected {want}")
+    Vp = cfg.padded_vocab()
+    if tuple(tokens.shape) != (BATCH, GEN) or tuple(logits.shape) != (
+            BATCH, GEN, Vp):
+        _fail(f"shapes: tokens {tuple(tokens.shape)}, logits "
+              f"{tuple(logits.shape)}")
+    if not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
+        _fail("generated token ids out of the vocabulary")
+    if not bool(torch.isfinite(logits).all()):
+        _fail("non-finite logits on the kernel path")
+
+    # The kernel path against the plain path, both teacher-forced with the
+    # kernel path's tokens, and a float32 run of the same model as the
+    # yardstick for the two bf16 paths.
+    plain, plain_s = _teacher_forced(cfg, params, prompts, tokens, False,
+                                     torch.bfloat16)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _cast(params, torch.float32)
+    gold, _ = _teacher_forced(cfg32, params32, prompts, tokens, False,
+                              torch.float32)
+    kern32, _ = _teacher_forced(cfg32, params32, prompts, tokens, True,
+                                torch.float32)
+    del params32
+
+    def err(a, b):         # max |a - b| at each position: (GEN,)
+        return (a - b).abs().amax(dim=(0, 2))
+
+    def rms(a, b):
+        return (a - b).square().mean().sqrt().item()
+    e_f32 = err(kern32, gold)
+    e_kernel, e_plain = err(logits, gold), err(plain, gold)
+    excess = (e_kernel - e_plain).max().item()
+    rms_ratio = rms(logits, gold) / rms(plain, gold)
+    print(f"  float32, kernel path vs plain path: max |dlogit| "
+          f"{e_f32.max().item():.3e} (tol {LOGIT_TOL_F32})")
+    print(f"  bf16 vs the float32 plain path: max |dlogit| kernel path "
+          f"{e_kernel.max().item():.4f}, plain path "
+          f"{e_plain.max().item():.4f}; RMS kernel path "
+          f"{rms(logits, gold):.5f}, plain path {rms(plain, gold):.5f}; "
+          f"kernel path vs plain path {err(logits, plain).max().item():.4f} "
+          f"(prefill {err(logits, plain)[0].item():.4f})")
+    print(f"  bf16 kernel-path excess over the plain path: largest per "
+          f"position {excess:.4f} (tol {BF16_EXCESS_TOL}), RMS ratio "
+          f"{rms_ratio:.4f} (tol {BF16_RMS_RATIO})")
+    if not e_f32.max().item() <= LOGIT_TOL_F32:
+        _fail(f"float32: the kernel path's logits differ from the plain "
+              f"path's by {e_f32.max().item()} > {LOGIT_TOL_F32}")
+    if not excess <= BF16_EXCESS_TOL:
+        _fail(f"bf16: the kernel path is {excess} farther from float32 than "
+              f"the plain path at some position (tol {BF16_EXCESS_TOL})")
+    if not rms_ratio <= BF16_RMS_RATIO:
+        _fail(f"bf16: the kernel path's RMS logit error is {rms_ratio} times "
+              f"the plain path's (tol {BF16_RMS_RATIO})")
+    print(f"  serve {ARCH} ({cfg.num_layers} layers, bf16) batch {BATCH} "
+          f"prompt {PROMPT} "
+          f"gen {GEN} on {card}: prefill "
+          f"{stats['prefill_tokens_per_s']:.1f} tok/s "
+          f"({stats['prefill_s']:.4f} s), decode "
+          f"{stats['decode_tokens_per_s']:.1f} tok/s "
+          f"({stats['decode_s']:.4f} s; first step "
+          f"{stats['decode_first_step_s'] * 1e3:.2f} ms, steady "
+          f"{stats['decode_steady_step_s'] * 1e3:.2f} ms/step = "
+          f"{stats['decode_steady_tokens_per_s']:.1f} tok/s); plain path "
+          f"prefill {BATCH * PROMPT / plain_s[0]:.1f} tok/s, decode "
+          f"{BATCH * (GEN - 1) / plain_s[1]:.1f} tok/s; peak memory of the "
+          f"kernel path {peak_gb:.2f} GB")
+    prof = _profile_decode(torch, cfg, params, prompts, tokens,
+                           stats["decode_steady_step_s"])
+    return launches, dict(stats, profile=prof)
+
+
+def _profile_decode(torch, cfg, params, prompts, tokens, steady_s) -> dict:
+    """Trace PROFILE_STEPS kernel-path decode steps (after two untraced
+    ones) with torch.profiler: device busy time and device events per step,
+    the kernels that take most of it, and the device's idle share against
+    the untraced steady decode step `steady_s`."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill, make_serve_step
+    caches = M.init_caches(cfg, BATCH, PROMPT + GEN, device=DEVICE)
+    prefill = make_prefill(cfg)
+    step = make_serve_step(cfg)
+    with torch.no_grad():
+        _, caches = prefill(params, caches, {"tokens": prompts})
+        for t in range(1, 3):
+            _, caches, _ = step(params, caches, tokens[:, t - 1:t])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(3, 3 + PROFILE_STEPS):
+                _, caches, _ = step(params, caches, tokens[:, t - 1:t])
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted(spans):           # the union of the device spans
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    out = {"steps": PROFILE_STEPS, "traced_step_ms":
+           traced_s / PROFILE_STEPS * 1e3,
+           "device_events_per_step": len(spans) / PROFILE_STEPS}
+    if not spans:
+        print("  decode profile: device time not measured (the profiler "
+              "recorded no device events)")
+        return dict(out, device_busy_ms_per_step=None, idle_share=None)
+    busy_ms = busy_us / PROFILE_STEPS / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out.update(device_busy_ms_per_step=busy_ms,
+               idle_share=1.0 - busy_ms / (steady_s * 1e3),
+               top_device_ms_per_step={
+                   n: us / PROFILE_STEPS / 1e3 for n, us in top})
+    print(f"  decode profile ({PROFILE_STEPS} steps, torch.profiler): "
+          f"{out['device_events_per_step']:.0f} device events and "
+          f"{busy_ms:.3f} ms device busy per step; traced step "
+          f"{out['traced_step_ms']:.2f} ms, untraced steady step "
+          f"{steady_s * 1e3:.2f} ms: idle share {out['idle_share']:.4f}")
+    for n, ms in out["top_device_ms_per_step"].items():
+        print(f"    {ms:.4f} ms/step  {n[:90]}")
+    return out
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _teacher_forced(cfg, params, prompts, tokens, use_kernels, cache_dtype):
+    """Prefill `prompts`, then decode feeding `tokens[:, :-1]`: the logits
+    (B, GEN, Vp) float32 at each position, and (prefill s, decode s)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill, make_serve_step
+    caches = M.init_caches(cfg, BATCH, PROMPT + GEN, dtype=cache_dtype,
+                           device=DEVICE)
+    prefill = make_prefill(cfg, use_kernels=use_kernels)
+    step = make_serve_step(cfg, use_kernels=use_kernels)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = prefill(params, caches, {"tokens": prompts})
+        out = [lg[:, -1].float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(1, GEN):
+            _, caches, last = step(params, caches, tokens[:, t - 1:t])
+            out.append(last.float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return torch.stack(out, dim=1), (t1 - t0, t2 - t1)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+
+    print("== card")
+    card = phase_card(torch)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    print("== build")
+    phase_build(_build)
+    print("== kernels")
+    kernels = phase_kernels(torch, args.seed)
+    print("== serve")
+    launches, serve_stats = phase_serve(torch, args.seed, card)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels, "card": card,
+                      "serve": serve_stats}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,2 @@
+"""Serve steps (port of `repro.train.steps`, serve half)."""
+from repro_torch.train.steps import make_prefill, make_serve_step  # noqa: F401
