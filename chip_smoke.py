@@ -16,8 +16,13 @@ order; any failure ends the run with a non-zero exit and no result line:
               reference's test sweeps (both dtypes) and at h2o-danube's
               shapes: |kernel - plain| <= 2e-5 + r |plain|, with r = 2^-8
               (the rounding of a bf16 output) for bf16 outputs and 0 for
-              float32 ones; time kernel, plain version and one PyTorch
-              library call (a yardstick only) with CUDA events;
+              float32 ones; wkv6 (float32 only) on the reference's sweep,
+              its two strong-decay cases and rwkv6-7b's training shape, to
+              the reference's 1e-4, and its gradient (autograd of the
+              chunked form) against autograd of the per-token plain
+              version; time kernel, plain version and one PyTorch library
+              call (a yardstick only; none computes WKV6) with CUDA
+              events;
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -32,13 +37,33 @@ order; any failure ends the run with a non-zero exit and no result line:
               the plain path's. Last, trace a few decode steps with
               torch.profiler: device time and kernels per step, and the
               device's idle share against the steady decode step;
-5. result  -- print the kernels' JSON line, then the device line.
+5. train   -- (a) lovelock-20m at full size in float32: 3 train steps
+              from the same weights and batches through the kernel path
+              and the plain path; losses within 1e-5 relative, the flash
+              kernel launched once per layer per step and once more in the
+              remat recompute. (b) rwkv6-7b at full width, 2 layers,
+              float32, batch 4 x 512 tokens: the loss and every gradient
+              leaf of one train step through both paths (the WKV6 forward
+              is the kernel on one and the chunked form on the other; both
+              backwards are the chunked form's autograd); loss within 1e-5
+              relative, each leaf within GRAD_TOL of its largest |g|.
+              (c) rwkv6-7b at full width, 8 of 32 layers, bf16, through
+              `train_loop`: batch 4 x 2048 tokens, 3 steps; finite losses,
+              wkv6 launched 2 x 8 times a step (forward and remat
+              recompute); step times, tokens/s and peak device memory;
+              then the same run through the plain path, its first loss
+              within BF16_LOSS_RTOL; then the kernel path at lr 0 and at a
+              tenth of the lr: no loss of the latter may exceed the
+              initial weights' loss on the same batch by more than
+              LOW_LR_RTOL;
+6. result  -- print the kernels' JSON line, then the device line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -68,6 +93,38 @@ LOGIT_TOL_F32 = 1e-4       # float32 logits, the port's CPU parity tests
 BF16_EXCESS_TOL = 0.05   # read: 0.0231
 BF16_RMS_RATIO = 1.02    # read: 0.9990
 PROFILE_STEPS = 4          # decode steps traced by torch.profiler
+# wkv6: the reference's sweep (tests/test_kernels.py:77-79) and rwkv6-7b's
+# training shape; float32 in and out, held to the reference's 1e-4
+# (tests/test_kernels.py:88)
+WKV6_SWEEP = [(2, 2, 128, 32), (1, 4, 100, 64), (2, 1, 64, 16),
+              (1, 2, 65, 64)]             # B, H, S, d
+WKV6_TOL = 1e-4
+# under near-perfect memory (logw = -1e-6) the outputs of N(0,1) inputs
+# reach ~|40| after 128 tokens: float32 rounding of those, relative
+WKV6_STABLE_RTOL = 1e-5
+# the train phase
+RWKV = "rwkv6-7b"
+LOVELOCK = ("lovelock-20m", 8, 256, 3)        # arch, batch, seq, steps
+RWKV_PARITY = (2, 4, 512)                     # layers, batch, seq
+RWKV_TRAIN = (8, 4, 2048, 3)                  # layers, batch, seq, steps
+# train_loop's lr is 3e-4 with a 10-step warmup: the loss of step i comes
+# after i updates, of lr 3e-5, 6e-5, ... At that lr the 8-layer loss jumps
+# above ln V on step 2 on both paths. The same run at lr 0 gives the
+# initial weights' loss on each step's batch; at a tenth of the lr, Adam's
+# first, sign-like updates move the wide layers a tenth as far, and no
+# loss after them may exceed the lr-0 loss on its batch by more than
+# LOW_LR_RTOL
+RWKV_LOW_LR = 3e-5
+LOW_LR_RTOL = 1e-2
+LOSS_RTOL = 1e-5
+# bf16 losses of the two paths at 8 layers: each rounds its activations to
+# bf16 at other places (the WKV recurrence itself is float32 on both); a
+# fault in a path moves the loss by O(1)
+BF16_LOSS_RTOL = 1e-2
+# rwkv6-7b 2-layer float32 gradients, kernel path (kernel forward) vs plain
+# path (chunked forward), both with the chunked form's backward: each
+# leaf's largest difference over its largest |g|
+GRAD_TOL = 1e-3
 DEVICE = "cuda"
 
 
@@ -248,9 +305,12 @@ def phase_kernels(torch, seed: int) -> list:
                            + bias.nbytes, "bfloat16")
     del ks, vs
 
+    wkv = _wkv6_kernel(torch, gen)
+
     bad = []
     for name, cases in (("flash_attention", flash_cases),
-                        ("decode_attention", decode_cases)):
+                        ("decode_attention", decode_cases),
+                        ("wkv6", wkv["cases"])):
         for c in cases:
             print(f"  {name} {c['dtype']:>14} {str(c['shape']):<40} "
                   f"max_abs_err {c['max_abs_err']:.3e}, beyond the "
@@ -265,6 +325,16 @@ def phase_kernels(torch, seed: int) -> list:
     print(f"  decode_attention at {list(h2o_decode)} bf16: {d_ms:.4f} ms "
           f"(plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms, bound "
           f"{d_bound:.4f} ms by {d_by})")
+    print(f"  wkv6 at {wkv['shape']} float32: {wkv['ms']:.4f} ms (plain "
+          f"{wkv['plain_ms']:.3f} ms, no library call computes WKV6, bound "
+          f"{wkv['bound_ms']:.4f} ms by {wkv['bound_by']}); forward and "
+          f"backward (the chunked form's autograd) "
+          f"{wkv['fwd_bwd_ms'][0]:.1f} ms the first time, then "
+          f"{wkv['fwd_bwd_ms'][1]:.1f} ms; gradient vs autograd of the "
+          f"per-token plain version {wkv['grad_err']:.3e} of the largest "
+          f"|g| (tol {WKV6_TOL})")
+    if not wkv["grad_err"] <= WKV6_TOL:
+        _fail(f"wkv6: gradient off by {wkv['grad_err']} of its largest |g|")
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -283,12 +353,110 @@ def phase_kernels(torch, seed: int) -> list:
          "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
          "bound_by": d_by, "library_ms": d_lib,
          "shape": list(h2o_decode), "cases": decode_cases},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:70",
+         "launches": None, "max_abs_err": wkv["cases"][-1]["max_abs_err"],
+         "ms": wkv["ms"], "plain_ms": wkv["plain_ms"],
+         "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
+         "library_ms": None,
+         "library_note": "no PyTorch call computes the WKV6 recurrence",
+         "shape": wkv["shape"], "grad_err": wkv["grad_err"],
+         "fwd_bwd_ms": wkv["fwd_bwd_ms"],
+         "cases": wkv["cases"]},
     ]
 
 
-def _h2o():
+def _wkv6_inputs(torch, gen, B, H, S, d):
+    """r, k, v, logw (B,H,S,d), u (H,d), float32, scaled as the
+    reference's sweep: logw = -exp(N(0,1)/2 - 1)."""
+    r, k, v = (_randn(torch, gen, (B, H, S, d), torch.float32) * 0.5
+               for _ in range(3))
+    logw = -torch.exp(_randn(torch, gen, (B, H, S, d), torch.float32) * 0.5
+                      - 1.0)
+    return r, k, v, logw, _randn(torch, gen, (H, d), torch.float32) * 0.5
+
+
+def _wkv6_kernel(torch, gen) -> dict:
+    """wkv6 against wkv6_ref on the card: the sweep, the strong-decay
+    cases and rwkv6-7b's training shape; its gradient at one sweep shape;
+    times and bound at the training shape."""
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    cfg = _config(RWKV)
+    _, B, S, _ = RWKV_TRAIN
+    H, d = cfg.d_model // cfg.head_dim_(), cfg.head_dim_()
+    shape = (B, H, S, d)
+
+    def held(case, inputs, rtol=0.0):
+        o, s = wops.wkv6(*inputs)
+        torch.cuda.synchronize()
+        ro, rs = wkv6_ref(*inputs, torch.zeros_like(s))
+        over = max(((a - b).abs() - rtol * b.abs()).max().item()
+                    for a, b in ((o, ro), (s, rs)))
+        err = max((a - b).abs().max().item() for a, b in ((o, ro), (s, rs)))
+        finite = bool(torch.isfinite(o).all() and torch.isfinite(s).all())
+        return {"shape": list(case), "dtype": "torch.float32",
+                "max_abs_err": err, "over_rel": over,
+                "tol": f"{WKV6_TOL} + {rtol}|ref|",
+                "ok": finite and over <= WKV6_TOL}
+
+    cases = []
+    for case in WKV6_SWEEP:
+        cases.append(held(case, _wkv6_inputs(torch, gen, *case)))
+    for logw in (-30.0, -1e-6):
+        r, k, v = (_randn(torch, gen, (1, 1, 128, 32), torch.float32)
+                   for _ in range(3))
+        c = held((1, 1, 128, 32), (r, k, v, torch.full_like(r, logw),
+                                   torch.zeros((1, 32), device=DEVICE)),
+                 rtol=WKV6_STABLE_RTOL)
+        cases.append(dict(c, logw=logw))
+    inputs = _wkv6_inputs(torch, gen, *shape)
+    cases.append(held(shape, inputs))
+
+    # the gradient through the kernel's autograd.Function (autograd of the
+    # chunked form) against autograd of the per-token plain version
+    small = [x.requires_grad_() for x in _wkv6_inputs(torch, gen,
+                                                      *WKV6_SWEEP[1])]
+    g_o = _randn(torch, gen, small[0].shape, torch.float32)
+    got = torch.autograd.grad(wops.wkv6(*small)[0], small, g_o)
+    d1 = small[0].shape[-1]
+    ref_o, _ = wkv6_ref(*small, torch.zeros(small[0].shape[:2] + (d1, d1),
+                                            device=DEVICE))
+    want = torch.autograd.grad(ref_o, small, g_o)
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(got, want))
+
+    ms = _time_ms(lambda i: wops.wkv6(*inputs), reps=10)
+    # one layer's train-path WKV6: the kernel's forward and the backward
+    # (the chunked form recomputed under autograd); the first call, which
+    # also pays the caching allocator's first allocation of the chunked
+    # form's saved tensors, and a second one
+    live = [x.detach().requires_grad_() for x in inputs]
+    g = torch.ones_like(inputs[0])
+    train_ms = [_time_ms(lambda i: torch.autograd.grad(
+        wops.wkv6(*live)[0], live, g), reps=1, warmup=0) for _ in range(2)]
+    del live, g
+    zero = torch.zeros(shape[:2] + (d, d), device=DEVICE)
+    plain_ms = _time_ms(lambda i: wkv6_ref(*inputs, zero), reps=2, warmup=1)
+    # each of r, k, v, logw read once, o written once, u read, S_final
+    # written; 5 FLOP per state entry per token (the o product's
+    # multiply-add, the decay's multiply, k v^T's multiply and the add)
+    nbytes = 5 * inputs[0].nbytes + inputs[4].nbytes + zero.nbytes
+    bound_ms, bound_by = _bound(5.0 * B * H * S * d * d, nbytes, "float32")
+    return {"cases": cases, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": list(shape), "grad_err": grad_err,
+            "fwd_bwd_ms": train_ms}
+
+
+def _config(arch, **replace):
     from repro_torch.configs import get_config
-    return get_config(ARCH)
+    return dataclasses.replace(get_config(arch), **replace)
+
+
+def _h2o():
+    return _config(ARCH)
 
 
 def phase_serve(torch, seed: int, card: str) -> dict:
@@ -445,6 +613,177 @@ def _profile_decode(torch, cfg, params, prompts, tokens, steady_s) -> dict:
     return out
 
 
+def _device_batch(torch, cfg, batch, seq, step, seed):
+    """The train driver's data for `step`: the storage-node dataset made
+    from `seed`, on the card."""
+    from repro_torch.data.pipeline import StorageNodeDataset
+    ds = StorageNodeDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                            global_batch=batch, seed=seed,
+                            distribution="zipf_markov")
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in ds.fetch_step(step).items()}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def phase_train(torch, seed: int, card: str) -> tuple:
+    """The three train checks; returns (launches by kernel and path, the
+    train block of the result line)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.train.steps import make_grad_fn, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    launches, out = {}, {}
+
+    # (a) lovelock-20m, float32, 3 steps through both paths
+    arch, B, S, steps = LOVELOCK
+    cfg = _config(arch, param_dtype="float32", compute_dtype="float32")
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    batches = [_device_batch(torch, cfg, B, S, i, seed) for i in range(steps)]
+    oc = OptimizerConfig(warmup=10, total_steps=steps)
+    losses = {}
+    for use_kernels in (True, False):
+        state = adamw_init(tree_map(lambda p: p.clone(), params), oc)
+        step = make_train_step(cfg, oc, use_kernels=use_kernels)
+        fops.flash_attention.launches = 0
+        losses[use_kernels] = []
+        for b in batches:
+            state, metrics = step(state, b)
+            losses[use_kernels].append(float(metrics["loss"]))
+        n = fops.flash_attention.launches
+        # one launch per layer in the forward, one more in remat's recompute
+        want = cfg.num_layers * 2 * steps if use_kernels else 0
+        print(f"  {arch} float32 {B}x{S}, {steps} steps, "
+              f"{'kernel' if use_kernels else 'plain'} path: losses "
+              f"{losses[use_kernels]}, flash launches {n} (expected {want})")
+        if n != want:
+            _fail(f"{arch} train: flash launched {n}, expected {want}")
+        if use_kernels:
+            launches[f"train {arch}"] = n
+    rel = max(_rel(a, b) for a, b in zip(losses[True], losses[False]))
+    print(f"  {arch}: kernel vs plain path losses {rel:.3e} relative "
+          f"(tol {LOSS_RTOL})")
+    if not rel <= LOSS_RTOL:
+        _fail(f"{arch} train: losses differ by {rel} relative")
+    out[arch] = {"batch": B, "seq": S, "dtype": "float32",
+                 "losses_kernel": losses[True],
+                 "losses_plain": losses[False], "loss_rel_err": rel}
+    del params, batches, state
+
+    # (b) rwkv6-7b at full width, 2 layers, float32: loss and gradients
+    layers, B, S = RWKV_PARITY
+    cfg = _config(RWKV, num_layers=layers, param_dtype="float32",
+                  compute_dtype="float32")
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    batch = _device_batch(torch, cfg, B, S, 0, seed)
+    got = {}
+    for use_kernels in (True, False):
+        wops.wkv6.launches = 0
+        metrics, grads = make_grad_fn(cfg, use_kernels=use_kernels)(params,
+                                                                    batch)
+        got[use_kernels] = (float(metrics["loss"]), tree_leaves(grads))
+        n = wops.wkv6.launches
+        want = layers * 2 if use_kernels else 0
+        if n != want:
+            _fail(f"{RWKV} {layers}-layer gradient: wkv6 launched {n}, "
+                  f"expected {want}")
+    rel = _rel(got[True][0], got[False][0])
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(got[True][1], got[False][1]))
+    print(f"  {RWKV} {layers} layers float32 {B}x{S}: loss "
+          f"{got[True][0]:.6f} (plain {got[False][0]:.6f}, {rel:.3e} "
+          f"relative, tol {LOSS_RTOL}); gradients: largest leaf difference "
+          f"{grad_err:.3e} of its largest |g| (tol {GRAD_TOL})")
+    if not rel <= LOSS_RTOL:
+        _fail(f"{RWKV} {layers}-layer loss differs by {rel} relative")
+    if not grad_err <= GRAD_TOL:
+        _fail(f"{RWKV} {layers}-layer gradients differ by {grad_err}")
+    out[f"{RWKV} {layers} layers"] = {
+        "batch": B, "seq": S, "dtype": "float32", "loss_kernel": got[True][0],
+        "loss_plain": got[False][0], "loss_rel_err": rel,
+        "grad_rel_err": grad_err, "wkv6_launches": layers * 2}
+    del params, batch, got, grads
+    torch.cuda.empty_cache()
+
+    # (c) rwkv6-7b at full width, 8 of 32 layers, bf16, through train_loop
+    layers, B, S, steps = RWKV_TRAIN
+    cfg = _config(RWKV, num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    wops.wkv6.launches = 0
+    state, info = train_loop(cfg, steps=steps, batch=B, seq=S, seed=seed,
+                             log_every=1, use_kernels=True, device=DEVICE)
+    n = wops.wkv6.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = layers * 2 * steps
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    del state
+    torch.cuda.empty_cache()
+    step_s = info["step_s"]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    print(f"  {RWKV} {layers} layers bf16 {B}x{S}, {steps} steps through "
+          f"train_loop on {card}: {n_params / 1e9:.3f} B params, losses "
+          f"{info['losses']}, step s {step_s} (first {step_s[0]:.3f}, "
+          f"steady {steady:.3f} = {B * S / steady:.1f} tok/s), peak memory "
+          f"{peak_gb:.2f} GB, wkv6 launches {n} (expected {want})")
+    if n != want:
+        _fail(f"{RWKV} train: wkv6 launched {n}, expected {want}")
+    if not all(math.isfinite(x) for x in info["losses"]):
+        _fail(f"{RWKV} train: non-finite loss {info['losses']}")
+    launches[f"train {RWKV} {layers} layers"] = n
+    # the same run through the plain path (chunked WKV6 and its autograd
+    # backward): the losses side by side
+    torch.cuda.reset_peak_memory_stats()
+    plain = train_loop(cfg, steps=steps, batch=B, seq=S, seed=seed,
+                       log_every=steps, use_kernels=False,
+                       device=DEVICE)[1]           # the state is not kept
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    rel = _rel(info["losses"][0], plain["losses"][0])
+    plain_steady = sum(plain["step_s"][1:]) / len(plain["step_s"][1:])
+    print(f"  the same run through the plain path: losses "
+          f"{plain['losses']} (first {rel:.3e} relative to the kernel "
+          f"path's, tol {BF16_LOSS_RTOL}), step s {plain['step_s']} "
+          f"(steady {plain_steady:.3f}), peak memory {plain_peak_gb:.2f} GB")
+    if not all(math.isfinite(x) for x in plain["losses"]):
+        _fail(f"{RWKV} train, plain path: non-finite loss {plain['losses']}")
+    if not rel <= BF16_LOSS_RTOL:
+        _fail(f"{RWKV} train: first losses of the paths differ by {rel}")
+    # the kernel path again at lr 0 and at a tenth of the lr: each step's
+    # loss against the initial weights' loss on the same batch
+    probe = {lr: train_loop(cfg, steps=steps, batch=B, seq=S, seed=seed,
+                            log_every=steps, lr=lr, use_kernels=True,
+                            device=DEVICE)[1]["losses"]
+             for lr in (0.0, RWKV_LOW_LR)}
+    torch.cuda.empty_cache()
+    base = probe[0.0]
+    ratios = {lr: [a / b for a, b in zip(losses, base)] for lr, losses in
+              ((RWKV_LOW_LR, probe[RWKV_LOW_LR]), (3e-4, info["losses"]))}
+    print(f"  the kernel path at lr 0: losses {base}; at lr {RWKV_LOW_LR}: "
+          f"{probe[RWKV_LOW_LR]}. Each step's loss over the lr-0 loss on its "
+          f"batch: {ratios[RWKV_LOW_LR]} at lr {RWKV_LOW_LR} (tol "
+          f"{1 + LOW_LR_RTOL}), {ratios[3e-4]} at the default lr")
+    if not (all(math.isfinite(x) for x in base + probe[RWKV_LOW_LR])
+            and max(ratios[RWKV_LOW_LR]) <= 1 + LOW_LR_RTOL):
+        _fail(f"{RWKV} train at lr {RWKV_LOW_LR}: losses "
+              f"{probe[RWKV_LOW_LR]} against {base} at lr 0")
+    out[f"{RWKV} {layers} layers"] = {
+        "batch": B, "seq": S, "dtype": "bfloat16", "params": n_params,
+        "losses": info["losses"], "step_s": step_s,
+        "first_step_s": step_s[0], "steady_step_s": steady,
+        "tokens_per_s": B * S / steady, "peak_memory_gb": peak_gb,
+        "plain_path": {"losses": plain["losses"], "step_s": plain["step_s"],
+                       "first_loss_rel_err": rel,
+                       "peak_memory_gb": plain_peak_gb},
+        "losses_by_lr": {str(lr): v for lr, v in probe.items()},
+        "loss_over_lr0": {str(lr): v for lr, v in ratios.items()}}
+    return launches, out
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -494,10 +833,23 @@ def main() -> int:
     kernels = phase_kernels(torch, args.seed)
     print("== serve")
     launches, serve_stats = phase_serve(torch, args.seed, card)
+    print("== train")
+    train_launches, train_stats = phase_train(torch, args.seed, card)
+    by_path = {"flash_attention": {f"serve {ARCH}":
+                                   launches["flash_attention"]},
+               "decode_attention": {f"serve {ARCH}":
+                                    launches["decode_attention"]},
+               "wkv6": {}}
+    for path, n in train_launches.items():
+        by_path["wkv6" if RWKV in path else "flash_attention"][path] = n
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # each main path's own count, reset to 0 just before its run and
+        # read just after; `launches` is the first such path's
+        paths = by_path[k["name"]]
+        k["launches_path"], k["launches"] = next(iter(paths.items()))
+        k["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels, "card": card,
-                      "serve": serve_stats}))
+                      "serve": serve_stats, "train": train_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
-"""PyTorch / CUDA port of the `repro` model stack (serve path).
+"""PyTorch / CUDA port of the `repro` model stack: the serve and train
+paths of the dense decoders and RWKV6.
 
 The package mirrors `repro`: `configs/`, `models/`, `train/steps.py`,
-`launch/serve.py` and `kernels/<name>/{ops.py, ref.py, csrc/*.cu}`. It
-imports `torch` and never `jax` or `repro`.
+`optim/`, `data/`, `core/elastic.py`, `launch/{serve,train}.py` and
+`kernels/<name>/{ops.py, ref.py, csrc/*.cu}`. It imports `torch` and never
+`jax` or `repro`.
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 they never fall back to the CPU on their own.

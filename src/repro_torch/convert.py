@@ -1,4 +1,5 @@
-"""Turn the reference package's parameters and caches into the port's.
+"""Turn the reference package's parameters, caches and train states into
+the port's.
 
 The input is the reference's tree after `np.asarray` was applied to every
 leaf (numpy only, so this module needs no jax). Keys, the leading period
@@ -11,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.optim.adamw import TrainState
+
 
 def _leaf(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -21,7 +24,10 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device="cpu"):
-    """Dicts and lists of numpy arrays -> the same tree of tensors."""
+    """Dicts and lists of numpy arrays -> the same tree of tensors (None
+    stays None)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -35,3 +41,18 @@ def caches_from_numpy(tree, device="cpu"):
                             device)
     out["index"] = int(np.asarray(tree["index"]))
     return out
+
+
+def train_state_from_numpy(state, device="cpu"):
+    """A reference TrainState (step, params, m, v, master[, ef], leaves as
+    numpy) -> the port's `TrainState`; int8 moments keep their {"q",
+    "scale"} leaves. The error-feedback buffer `ef` of the compressed
+    cross-pod sync has no counterpart yet and must be None."""
+    if getattr(state, "ef", None) is not None:
+        raise NotImplementedError("the error-feedback state `ef` belongs to "
+                                  "the compressed cross-pod sync, ROADMAP.md "
+                                  "queue 1 item 9")
+    return TrainState(
+        int(np.asarray(state.step)),
+        *(params_from_numpy(getattr(state, f), device)
+          for f in ("params", "m", "v", "master")))

@@ -1,10 +1,11 @@
-"""Flash attention forward: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors.
+"""Flash attention: the CUDA kernel for CUDA tensors, the plain version
+for CPU tensors, with a gradient.
 
-Port of `repro/kernels/flash_attention/ops.py::flash_attention` (forward
-only; the backward comes with the training slice). The kernel reads the
-(B,S,H,d) layout in place and masks the ragged S edge itself, so the TPU
-wrapper's padding of S and d does not carry over.
+Port of `repro/kernels/flash_attention/ops.py::flash_attention`. The
+kernel reads the (B,S,H,d) layout in place and masks the ragged S edge
+itself, so the TPU wrapper's padding of S and d does not carry over. As in
+the reference's `custom_vjp`, there is no backward kernel: the backward
+recomputes `flash_attention_ref` under autograd.
 """
 from __future__ import annotations
 
@@ -32,14 +33,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q, k, v, *, causal=True, window=None):
-    """q (B,S,H,d), k/v (B,S,K,d) -> (B,S,H,d) in q's dtype.
-
-    CPU tensors go through `flash_attention_ref`; CUDA tensors launch the
-    kernel (float32 or bfloat16, d in 32/64/80/112/128) or raise.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+def _launch_kernel(q, k, v, causal, window):
     _launch.check_cuda_inputs(_NAME, q=q, k=k, v=v)
     B, S, H, d = q.shape
     K = k.shape[2]
@@ -63,6 +57,34 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     _launch.raise_on_error(_NAME, err, lib, "flash_attention_error_string")
     flash_attention.launches += 1
     return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return _launch_kernel(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window = ctx.mask
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            o = flash_attention_ref(*inputs, causal=causal, window=window)
+        return (*torch.autograd.grad(o, inputs, g), None, None)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """q (B,S,H,d), k/v (B,S,K,d) -> (B,S,H,d) in q's dtype;
+    differentiable.
+
+    CPU tensors go through `flash_attention_ref`; CUDA tensors launch the
+    kernel (float32 or bfloat16, d in 32/64/80/112/128) or raise.
+    """
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 flash_attention.launches = 0

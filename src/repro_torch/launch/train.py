@@ -1,0 +1,140 @@
+"""End-to-end training driver on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lovelock-20m \
+        --steps 100 --batch 8 --seq 256 [--device cpu] [--no-kernels]
+
+Port of `repro.launch.train`: storage-node data pipeline -> train step
+(AdamW) -> straggler detection. Runs on the CUDA card unless `--device
+cpu`; the kernels are on unless `--no-kernels`. The streaming checkpointer
+(`--ckpt-dir`, `--resume`: ROADMAP.md queue 1 item 5) and meshes of more
+than one device (`--data-mesh`, `--model-mesh`: item 8) are not ported
+yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core.elastic import StragglerDetector
+from repro_torch.data.pipeline import Prefetcher, StorageNodeDataset
+from repro_torch.models import model as M
+from repro_torch.optim import OptimizerConfig, adamw_init
+from repro_torch.train.steps import make_train_step
+
+
+def _clock(dev: torch.device) -> float:
+    """Host clock after the device has finished the queued work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()  # simlint: ok[DET002]
+
+
+def train_loop(cfg, *, steps, batch, seq, ckpt_dir=None, ckpt_every=50,
+               lr=3e-4, seed=0, log_every=10, data_mesh=1, model_mesh=1,
+               resume=False, log_path=None, use_kernels=True,
+               distribution="zipf_markov", device=None, params=None):
+    """Train `steps` steps of `batch` x `seq` tokens from the synthetic
+    storage-node dataset made from `seed`.
+
+    `params` default to random ones made from `seed` on the device. Returns
+    (state, info): info holds the losses, each step's seconds (`step_s`,
+    host clock around a synchronised step, the batch's copy to the device
+    included) and the wall seconds of the loop.
+    """
+    if ckpt_dir is not None or resume:
+        raise NotImplementedError(
+            "checkpoints (--ckpt-dir, --resume) are not ported yet: "
+            "ROADMAP.md queue 1 item 5 (the streaming checkpointer)")
+    if data_mesh * model_mesh > 1:
+        raise NotImplementedError(
+            f"a {data_mesh} x {model_mesh} mesh is not ported yet: ROADMAP.md "
+            f"queue 1 item 8 (sharding and meshes); the port trains on one "
+            f"device")
+    del ckpt_every        # used with checkpoints only
+    dev = resolve_device(device)
+    opt_cfg = OptimizerConfig(lr=lr, warmup=max(10, steps // 20),
+                              total_steps=steps)
+    if params is None:
+        params = M.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                               tp=model_mesh)
+    state = adamw_init(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, use_kernels=use_kernels)
+    ds = StorageNodeDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                            global_batch=batch, seed=seed,
+                            distribution=distribution)
+    detector = StragglerDetector(n_hosts=1)
+    losses, step_s = [], []
+    t_start = _clock(dev)
+    with contextlib.ExitStack() as stack:
+        logf = (stack.enter_context(open(log_path, "a"))
+                if log_path else None)
+        it = Prefetcher(iter(ds), depth=2)
+        stack.callback(it.close)
+        for batch_np in it:
+            step = state.step
+            if step >= steps:
+                break
+            t0 = _clock(dev)
+            tensors = {k: torch.from_numpy(v).to(dev)
+                       for k, v in batch_np.items()}
+            state, metrics = step_fn(state, tensors)
+            loss = float(metrics["loss"])
+            dt = _clock(dev) - t0
+            detector.observe([dt])
+            losses.append(loss)
+            step_s.append(dt)
+            if step % log_every == 0:
+                rec = {"step": step, "loss": round(loss, 4),
+                       "step_time_s": round(dt, 3),
+                       "tokens_per_s": round(batch * seq / dt, 1)}
+                print(json.dumps(rec), flush=True)
+                if logf:
+                    logf.write(json.dumps(rec) + "\n")
+                    logf.flush()
+    wall = _clock(dev) - t_start
+    return state, {"losses": losses, "step_s": step_s, "wall_s": wall}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="lovelock-20m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke variant of --arch")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--data-mesh", type=int, default=1)
+    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--log", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run there)")
+    ap.add_argument("--no-kernels", action="store_true",
+                    help="plain PyTorch attention / WKV6 instead of the "
+                         "kernels")
+    args = ap.parse_args()
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    _, info = train_loop(
+        cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, lr=args.lr,
+        data_mesh=args.data_mesh, model_mesh=args.model_mesh,
+        resume=args.resume, log_path=args.log,
+        use_kernels=not args.no_kernels, device=args.device)
+    l = info["losses"]
+    print(f"done: {len(l)} steps, loss {l[0]:.3f} -> {l[-1]:.3f}, "
+          f"wall {info['wall_s']:.0f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Dense decoder layers (port of the dense subset of `repro.models.layers`).
+"""Decoder layers: the dense subset of `repro.models.layers` and RWKV6.
 
 Conventions
 -----------
@@ -10,8 +10,9 @@ Conventions
 * KV caches are written in place (an index write into the cache tensor,
   which may be a view of the stacked per-layer cache); the reference
   returns updated copies instead.
-* `use_kernels=True` runs attention through the CUDA kernels (their plain
-  versions for CPU tensors); `False` selects the reference's plain paths.
+* `use_kernels=True` runs attention and the WKV6 recurrence through the
+  CUDA kernels (their plain versions for CPU tensors); `False` selects the
+  reference's plain paths.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.rwkv6 import ops as wops
+from repro_torch.kernels.rwkv6.ref import wkv6_chunked as _wkv6_chunked
 
 NEG_BIG = -1e30
 
@@ -229,3 +232,78 @@ def swiglu(p, x):
     g = _einsum("bsd,df->bsf", x, p["w_gate"])
     u = _einsum("bsd,df->bsf", x, p["w_up"])
     return _einsum("bsf,fd->bsd", F.silu(g) * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent decay WKV; its chunked parallel form,
+# `_wkv6_chunked`, lives beside the kernel, whose backward is its autograd
+# ---------------------------------------------------------------------------
+
+
+def _lora(x, p, act=torch.tanh):
+    return _einsum("bsr,rd->bsd", act(_einsum("bsd,dr->bsr", x, p["a"])),
+                   p["b"])
+
+
+def _shifted(x, state):
+    """x shifted one token right: the previous token at each position,
+    `state` (B,1,D) or zeros before the first."""
+    if state is not None:
+        return torch.cat([state, x[:, :-1]], dim=1)
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def rwkv_time_mix(p, x, cfg, *, state=None, use_kernels=True):
+    """RWKV6 time-mix with data-dependent decay.
+
+    p: {mu_r/k/v/g/w (D,), w0 (D,), w_lora {a (D,r), b (r,D)},
+        wr/wk/wv/wg (D,H,hd), wo (H,hd,D), u (H,hd), ln_x (H*hd,)}
+    state: {shift (B,1,D), wkv (B,H,hd,hd)}
+    Returns (out, new_state); the recurrence runs in float32. The kernel
+    starts from a zero state, so it runs only without `state` (training);
+    prefill (zeroed caches) and decode take the chunked form, as in the
+    reference.
+    """
+    B, S, D = x.shape
+    H, hd = p["u"].shape
+    prev = _shifted(x, None if state is None else state["shift"])
+
+    def mix(mu):
+        return x + (prev - x) * mu
+    xr, xk, xv, xg, xw = (mix(p[f"mu_{n}"]) for n in "rkvgw")
+    r = _einsum("bsd,dhk->bhsk", xr, p["wr"])
+    k = _einsum("bsd,dhk->bhsk", xk, p["wk"])
+    v = _einsum("bsd,dhk->bhsk", xv, p["wv"])
+    g = F.silu(_einsum("bsd,dhk->bhsk", xg, p["wg"]))
+    # data-dependent decay (the Finch contribution)
+    wdyn = p["w0"] + _lora(xw, p["w_lora"])                  # (B,S,D)
+    logw = -torch.exp(wdyn.float())                           # <= 0
+    logw = logw.reshape(B, S, H, hd).permute(0, 2, 1, 3)
+    rf, kf, vf, uf = (t.float().contiguous() for t in (r, k, v, p["u"]))
+    if use_kernels and state is None:
+        out, S_fin = wops.wkv6(rf, kf, vf, logw.contiguous(), uf)
+    else:
+        S0 = state["wkv"] if state is not None else torch.zeros(
+            (B, H, hd, hd), dtype=torch.float32, device=x.device)
+        out, S_fin = _wkv6_chunked(rf, kf, vf, logw, uf, S0)
+    # group norm per head (population variance)
+    out = out.permute(0, 2, 1, 3)                             # (B,S,H,hd)
+    mu_ = out.mean(-1, keepdim=True)
+    var = out.var(-1, keepdim=True, correction=0)
+    out = (out - mu_) * torch.rsqrt(var + 64e-5)
+    out = (out.reshape(B, S, H * hd) * p["ln_x"]).to(x.dtype)
+    out = out * g.permute(0, 2, 1, 3).reshape(B, S, H * hd)
+    out = _einsum("bshk,hkd->bsd", out.reshape(B, S, H, hd), p["wo"])
+    return out, {"shift": x[:, -1:], "wkv": S_fin}
+
+
+def rwkv_channel_mix(p, x, *, state=None):
+    """p: {mu_k, mu_r (D,), wk (D,F), wv (F,D), wr (D,D)}. Returns (out,
+    new_state (B,1,D))."""
+    prev = _shifted(x, state)
+    xk = x + (prev - x) * p["mu_k"]
+    xr = x + (prev - x) * p["mu_r"]
+    kk = torch.square(F.relu(_einsum("bsd,df->bsf", xk, p["wk"])))
+    vv = _einsum("bsf,fd->bsd", kk, p["wv"])
+    rr = torch.sigmoid(_einsum("bsd,de->bse", xr, p["wr"]))
+    return rr * vv, x[:, -1:]

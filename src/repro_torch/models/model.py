@@ -1,17 +1,18 @@
-"""Model assembly for dense decoders: init / prefill forward / decode.
+"""Model assembly for dense decoders and RWKV6: init / forward / decode.
 
-Port of the dense subset of `repro.models.model`. Parameters keep the
-reference's tree: per-position-in-period layer dicts whose leaves carry a
-leading period axis. The reference's `lax.scan` over periods is a Python
-loop over that axis here. KV caches are updated in place, so the
-reference's two `cache_in_carry` decode branches (which compute the same
-function) are one index write.
+Port of the dense and RWKV6 subset of `repro.models.model`. Parameters
+keep the reference's tree: per-position-in-period layer dicts whose leaves
+carry a leading period axis. The reference's `lax.scan` over periods is a
+Python loop over that axis here. Caches (KV rings, RWKV shift and WKV
+states) are updated in place, so the reference's two `cache_in_carry`
+decode branches (which compute the same function) are one index write.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -22,18 +23,20 @@ _LATER = {
     "vlm": "item 7 (VLM and whisper: cross_attention)",
     "audio": "item 7 (VLM and whisper: the whisper encoder)",
     "hybrid": "item 7 (Mamba), with MoE",
-    "ssm": "item 7 (RWKV6) and TPU-kernel queue item 3 (wkv6_fwd)",
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.rwkv
-            or cfg.attn_every > 1 or cfg.cross_attn_every
-            or cfg.encoder_layers):
+def _require_supported(cfg: ModelConfig) -> None:
+    """Raise unless `cfg` is a dense decoder or RWKV6."""
+    if cfg.rwkv:
+        return
+    if (cfg.family != "dense" or cfg.moe is not None or cfg.attn_every > 1
+            or cfg.cross_attn_every or cfg.encoder_layers):
         later = _LATER.get(cfg.family, "item 7")
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): repro_torch runs dense decoders "
-            f"only so far; ROADMAP.md queue 1 {later} ports this family")
+            f"and RWKV6 only so far; ROADMAP.md queue 1 {later} ports this "
+            f"family")
 
 
 # ---------------------------------------------------------------------------
@@ -42,13 +45,16 @@ def _require_dense(cfg: ModelConfig) -> None:
 
 
 def period_of(cfg: ModelConfig) -> int:
-    _require_dense(cfg)
+    _require_supported(cfg)
     return 1
 
 
 def block_specs(cfg: ModelConfig) -> list[dict]:
     """One spec per position within a period."""
-    return [{"kind": "attn", "ffn": "dense"} for _ in range(period_of(cfg))]
+    _require_supported(cfg)
+    if cfg.rwkv:
+        return [{"kind": "rwkv", "ffn": "rwkv"}]
+    return [{"kind": "attn", "ffn": "dense"}]
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +126,43 @@ def _ffn_params(gen, cfg: ModelConfig):
                              0.02 / math.sqrt(2 * cfg.num_layers))}
 
 
+def _rwkv_params(gen, cfg: ModelConfig):
+    D = cfg.d_model
+    hd = cfg.head_dim_()
+    H = D // hd
+    r_lora = max(8, D // 64)
+    dt = _dtype(cfg.param_dtype)
+    f32 = torch.float32
+
+    def full(value, dtype):
+        return torch.full((D,), value, dtype=dtype, device=gen.device)
+    tm = {f"mu_{n}": full(0.5, dt) for n in "rkvgw"}
+    tm.update({
+        "w0": full(-1.5, f32),
+        "w_lora": {"a": _dense(gen, (D, r_lora), f32),
+                   "b": _dense(gen, (r_lora, D), f32)},
+        "wr": _dense(gen, (D, H, hd), dt),
+        "wk": _dense(gen, (D, H, hd), dt),
+        "wv": _dense(gen, (D, H, hd), dt),
+        "wg": _dense(gen, (D, H, hd), dt),
+        "wo": _dense(gen, (H, hd, D), dt,
+                     0.02 / math.sqrt(2 * cfg.num_layers)),
+        "u": _dense(gen, (H, hd), f32),
+        "ln_x": full(1.0, f32),
+    })
+    cm = {"mu_k": full(0.5, dt), "mu_r": full(0.5, dt),
+          "wk": _dense(gen, (D, cfg.d_ff), dt),
+          "wv": _dense(gen, (cfg.d_ff, D), dt),
+          "wr": _dense(gen, (D, D), dt)}
+    return {"time_mix": tm, "channel_mix": cm}
+
+
 def _block_params(gen, cfg: ModelConfig, spec: dict, tp: int):
-    return {"ln1": _norm_init(gen, cfg.d_model),
-            "ln2": _norm_init(gen, cfg.d_model),
-            "attn": _attn_params(gen, cfg, tp),
+    p = {"ln1": _norm_init(gen, cfg.d_model),
+         "ln2": _norm_init(gen, cfg.d_model)}
+    if spec["kind"] == "rwkv":
+        return {**p, **_rwkv_params(gen, cfg)}
+    return {**p, "attn": _attn_params(gen, cfg, tp),
             "ffn": _ffn_params(gen, cfg)}
 
 
@@ -170,6 +209,8 @@ def _at(tree, i):
 def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
                  mode="train", use_kernels=True):
     """One block. Returns (x, new_cache)."""
+    if spec["kind"] == "rwkv":
+        return _apply_rwkv_block(p, x, cfg, cache, use_kernels)
     new_cache = cache
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "decode":
@@ -191,6 +232,26 @@ def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
     return x + L.swiglu(p["ffn"], h), new_cache
 
 
+def _apply_rwkv_block(p, x, cfg, cache, use_kernels):
+    """An RWKV6 block (train, prefill and decode alike). The new shift and
+    WKV states are written into `cache` in place."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    o, tm_state = L.rwkv_time_mix(p["time_mix"], h, cfg,
+                                  state=None if cache is None else
+                                  cache["tm"], use_kernels=use_kernels)
+    x = x + o
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    o, cm_state = L.rwkv_channel_mix(p["channel_mix"], h,
+                                     state=None if cache is None else
+                                     cache["cm"])
+    x = x + o
+    if cache is not None:
+        for name, new in tm_state.items():
+            cache["tm"][name].copy_(new)
+        cache["cm"].copy_(cm_state)
+    return x, cache
+
+
 def _embed(params, cfg, tokens):
     return params["embed"][tokens]
 
@@ -200,27 +261,42 @@ def _unembed(params, cfg, x):
     return L._einsum("bsd,vd->bsv", x, head)
 
 
-def _run_layers(params, cfg, x, caches, **kw):
+def _run_layers(params, cfg, x, caches, *, remat=False, **kw):
     specs = block_specs(cfg)
-    for li in range(cfg.num_layers // len(specs)):
+
+    def period(x, li):
         for i, spec in enumerate(specs):
             cc = None if caches is None else _at(caches["layers"][i], li)
             x, _ = _apply_block(_at(params["layers"][i], li), spec, x, cfg,
                                 cache=cc, **kw)
+        return x
+    for li in range(cfg.num_layers // len(specs)):
+        if remat:
+            # The reference saves the periods' matmul outputs
+            # (dots_with_no_batch_dims_saveable); here a period keeps only
+            # its input and recomputes the rest in the backward. Same
+            # numbers, another memory / recompute trade.
+            x = checkpoint(period, x, li, use_reentrant=False)
+        else:
+            x = period(x, li)
     return x
 
 
 def forward(params, cfg: ModelConfig, tokens, *, caches=None,
-            use_kernels=True):
-    """Full-sequence forward (prefill when caches are given).
+            use_kernels=True, remat=True):
+    """Full-sequence forward (train, or prefill when caches are given).
 
-    Returns (logits, aux_loss, new_caches); aux_loss is 0 for dense models.
-    The caches' tensors are written in place; new_caches shares them and
-    carries the advanced index.
+    Returns (logits, aux_loss, new_caches); aux_loss is 0 for the dense
+    and RWKV6 models. `remat` recomputes each period in the backward; it
+    applies only when autograd records and no caches are given. The caches'
+    tensors are written in place; new_caches shares them and carries the
+    advanced index.
     """
     x = _embed(params, cfg, tokens)
     x = _run_layers(params, cfg, x, caches, mode="train",
-                    use_kernels=use_kernels)
+                    use_kernels=use_kernels,
+                    remat=remat and caches is None
+                    and torch.is_grad_enabled())
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -252,16 +328,24 @@ def decode_step(params, cfg: ModelConfig, token, caches, *,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                 dtype=torch.bfloat16, *, device) -> dict:
-    """Zeroed KV caches; W = min(max_len, sliding window). `index` is an
-    int (the next position to write)."""
+    """Zeroed caches: KV rings of W = min(max_len, sliding window) slots,
+    or RWKV6's shift states (in `dtype`) and WKV states (float32). `index`
+    is an int (the next position to write)."""
     specs = block_specs(cfg)
     n_periods = cfg.num_layers // len(specs)
     hd = cfg.head_dim_()
-    _, Kp, _ = cfg.padded_heads(tp)
-    W = min(max_len, cfg.sliding_window or max_len)
-    shape = (n_periods, batch, W, Kp, hd)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((n_periods, batch) + shape, dtype=dt,
+                           device=device)
 
     def one(spec):
-        return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+        if spec["kind"] == "rwkv":
+            D = cfg.d_model
+            return {"tm": {"shift": zeros(1, D),
+                           "wkv": zeros(D // hd, hd, hd, dt=torch.float32)},
+                    "cm": zeros(1, D)}
+        _, Kp, _ = cfg.padded_heads(tp)
+        W = min(max_len, cfg.sliding_window or max_len)
+        return {"kv": {"k": zeros(W, Kp, hd), "v": zeros(W, Kp, hd)}}
     return {"index": 0, "layers": [one(s) for s in specs]}

@@ -1,2 +1,5 @@
-"""Serve steps (port of `repro.train.steps`, serve half)."""
-from repro_torch.train.steps import make_prefill, make_serve_step  # noqa: F401
+"""Train and serve steps (port of `repro.train.steps`)."""
+from repro_torch.train.steps import (  # noqa: F401
+    cross_entropy, make_grad_fn, make_prefill, make_serve_step,
+    make_train_step,
+)

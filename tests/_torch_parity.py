@@ -24,6 +24,11 @@ FLASH_SWEEP = [  # B, S, H, K, d, causal, window
 ]
 DECODE_SWEEP = [(2, 512, 4, 2, 64), (1, 300, 8, 8, 128),  # B, W, H, K, d
                 (2, 1000, 4, 1, 80)]
+# tests/test_kernels.py:77-79 (B, H, S, d); S=100 and 65 are ragged for the
+# reference's 64-token chunks
+WKV6_SWEEP = [(2, 2, 128, 32), (1, 4, 100, 64), (2, 1, 64, 16),
+              (1, 2, 65, 64)]
+WKV6_TOL = 1e-4                  # float32, tests/test_kernels.py:88
 
 
 def flash_inputs(seed, B, S, H, K, d):
@@ -43,6 +48,17 @@ def decode_inputs(seed, B, W, H, K, d):
     v = rng.standard_normal((B, W, K, d), np.float32)
     bias = np.where(rng.random((B, W)) < 0.8, 0.0, -1e30).astype(np.float32)
     return q, k, v, bias
+
+
+def wkv6_inputs(seed, B, H, S, d):
+    """r, k, v, logw (B,H,S,d) and u (H,d), float32, scaled as the
+    reference's sweep scales them: logw = -exp(N(0,1)/2 - 1) < 0."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, S, d), np.float32) * 0.5
+               for _ in range(3))
+    logw = -np.exp(rng.standard_normal((B, H, S, d), np.float32) * 0.5 - 1.0)
+    u = rng.standard_normal((H, d), np.float32) * 0.5
+    return r, k, v, logw.astype(np.float32), u
 
 
 def cfg_pair(arch, *, smoke=False, f32=True, **replace):
