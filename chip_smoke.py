@@ -20,9 +20,12 @@ order; any failure ends the run with a non-zero exit and no result line:
               its two strong-decay cases and rwkv6-7b's training shape, to
               the reference's 1e-4, and its gradient (autograd of the
               chunked form) against autograd of the per-token plain
-              version; time kernel, plain version and one PyTorch library
-              call (a yardstick only; none computes WKV6) with CUDA
-              events;
+              version; bf16 flash also at every head dim (the
+              tensor-core kernel; float32 takes the CUDA-core one); time
+              kernel, plain version and one PyTorch library call (a
+              yardstick only; none computes WKV6) with CUDA events, and
+              the kernels' and library calls' device-only time with
+              torch.profiler;
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -81,6 +84,10 @@ FLASH_SWEEP = [  # B, S, H, K, d, causal, window
     (2, 256, 4, 2, 64, True, None), (1, 384, 8, 8, 128, True, None),
     (2, 200, 4, 1, 80, True, 96), (1, 128, 2, 2, 32, False, None),
     (1, 130, 6, 2, 112, True, None)]
+# bf16 takes the tensor-core kernel: each head dim at an S that is not a
+# multiple of its 128-row q-tile and spans three of them, GQA, a window
+FLASH_BF16_DIMS = [(2, 300, 8, 2, d, True, 100) for d in (32, 64, 80, 112,
+                                                          128)]
 DECODE_SWEEP = [(2, 512, 4, 2, 64), (1, 300, 8, 8, 128),  # B, W, H, K, d
                 (2, 1000, 4, 1, 80)]
 # the serve run: h2o-danube-1.8b, prompt longer than its 4096 window
@@ -146,6 +153,45 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _busy_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) spans."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def _device_spans(torch, prof) -> list:
+    """(start, end) in us of every device event of a torch.profiler run."""
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_ms(torch, fn, reps: int, warmup: int = 2):
+    """Device time per call of fn(i): the union of the device events that
+    torch.profiler records over `reps` calls, after `warmup` untraced ones,
+    over `reps`. It leaves out the host's launch gaps that CUDA events over
+    back-to-back calls include. None where the profiler records no device
+    event (then the device time is not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    busy = _busy_us(_device_spans(torch, prof))
+    return busy / reps / 1e3 if busy else None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def _bound(flops: float, nbytes: float, dtype_name: str) -> tuple:
@@ -232,7 +278,8 @@ def phase_kernels(torch, seed: int) -> list:
     flash_cases = []
     h2o_flash = (BATCH, PROMPT, H, K, d, True, window)
     for dt in (torch.float32, torch.bfloat16):
-        for case in FLASH_SWEEP + [h2o_flash]:
+        extra = FLASH_BF16_DIMS if dt == torch.bfloat16 else []
+        for case in FLASH_SWEEP + extra + [h2o_flash]:
             B, S, Hc, Kc, dc, causal, win = case
             q = _randn(torch, gen, (B, S, Hc, dc), dt)
             k = _randn(torch, gen, (B, S, Kc, dc), dt)
@@ -246,16 +293,20 @@ def phase_kernels(torch, seed: int) -> list:
     q = _randn(torch, gen, (BATCH, PROMPT, H, d), torch.bfloat16)
     k = _randn(torch, gen, (BATCH, PROMPT, K, d), torch.bfloat16)
     v = _randn(torch, gen, (BATCH, PROMPT, K, d), torch.bfloat16)
-    f_ms = _time_ms(lambda i: fops.flash_attention(
-        q, k, v, causal=True, window=window), reps=10)
+    f_call = lambda i: fops.flash_attention(q, k, v, causal=True,  # noqa: E731
+                                            window=window)
+    f_ms = _time_ms(f_call, reps=10)
     f_plain = _time_ms(lambda i: flash_attention_ref(
         q, k, v, causal=True, window=window), reps=3, warmup=1)
     pos = torch.arange(PROMPT, device=DEVICE)
     dlt = pos[:, None] - pos[None, :]
     allowed = (dlt >= 0) & (dlt < window)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    f_lib = _time_ms(lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=allowed, enable_gqa=True), reps=5, warmup=1)
+    f_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+    f_lib = _time_ms(f_sdpa, reps=5, warmup=1)
+    f_dev = _device_ms(torch, f_call, reps=10)
+    f_lib_dev = _device_ms(torch, f_sdpa, reps=5)
     pairs = _visible_pairs(PROMPT, True, window)
     f_bound, f_by = _bound(4.0 * BATCH * H * pairs * d,
                            2 * q.nbytes + k.nbytes + v.nbytes, "bfloat16")
@@ -291,15 +342,19 @@ def phase_kernels(torch, seed: int) -> list:
     vs = [_randn(torch, gen, (BATCH, window, K, d), torch.bfloat16)
           for _ in range(n_sets)]
     bias = _bias(torch, ring)
-    d_ms = _time_ms(lambda i: dops.decode_attention(
-        q, ks[i % n_sets], vs[i % n_sets], bias), reps=80, warmup=8)
+    d_call = lambda i: dops.decode_attention(  # noqa: E731
+        q, ks[i % n_sets], vs[i % n_sets], bias)
+    d_ms = _time_ms(d_call, reps=80, warmup=8)
     d_plain = _time_ms(lambda i: decode_attention_ref(
         q, ks[i % n_sets], vs[i % n_sets], bias), reps=40, warmup=8)
     qt = q.transpose(1, 2)
     mask = bias[:, None, None, :]
-    d_lib = _time_ms(lambda i: F.scaled_dot_product_attention(
+    d_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
         qt, ks[i % n_sets].transpose(1, 2), vs[i % n_sets].transpose(1, 2),
-        attn_mask=mask, enable_gqa=True), reps=40, warmup=8)
+        attn_mask=mask, enable_gqa=True)
+    d_lib = _time_ms(d_sdpa, reps=40, warmup=8)
+    d_dev = _device_ms(torch, d_call, reps=40, warmup=8)
+    d_lib_dev = _device_ms(torch, d_sdpa, reps=40, warmup=8)
     d_bound, d_by = _bound(4.0 * BATCH * H * window * d,
                            2 * q.nbytes + ks[0].nbytes + vs[0].nbytes
                            + bias.nbytes, "bfloat16")
@@ -321,13 +376,16 @@ def phase_kernels(torch, seed: int) -> list:
         _fail(f"kernels disagree with their plain versions: {bad}")
     print(f"  flash_attention at {list(h2o_flash)} bf16: {f_ms:.4f} ms "
           f"(plain {f_plain:.3f} ms, SDPA {f_lib:.4f} ms, bound "
-          f"{f_bound:.4f} ms by {f_by})")
+          f"{f_bound:.4f} ms by {f_by}); device only {_fmt(f_dev)} ms, "
+          f"SDPA {_fmt(f_lib_dev)} ms")
     print(f"  decode_attention at {list(h2o_decode)} bf16: {d_ms:.4f} ms "
           f"(plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms, bound "
-          f"{d_bound:.4f} ms by {d_by})")
+          f"{d_bound:.4f} ms by {d_by}); device only {_fmt(d_dev)} ms, "
+          f"SDPA {_fmt(d_lib_dev)} ms")
     print(f"  wkv6 at {wkv['shape']} float32: {wkv['ms']:.4f} ms (plain "
           f"{wkv['plain_ms']:.3f} ms, no library call computes WKV6, bound "
-          f"{wkv['bound_ms']:.4f} ms by {wkv['bound_by']}); forward and "
+          f"{wkv['bound_ms']:.4f} ms by {wkv['bound_by']}; device only "
+          f"{_fmt(wkv['device_ms'])} ms); forward and "
           f"backward (the chunked form's autograd) "
           f"{wkv['fwd_bwd_ms'][0]:.1f} ms the first time, then "
           f"{wkv['fwd_bwd_ms'][1]:.1f} ms; gradient vs autograd of the "
@@ -342,7 +400,8 @@ def phase_kernels(torch, seed: int) -> list:
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
          "launches": None, "max_abs_err": flash_cases[-1]["max_abs_err"],
          "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
-         "bound_by": f_by, "library_ms": f_lib,
+         "bound_by": f_by, "library_ms": f_lib, "device_ms": f_dev,
+         "library_device_ms": f_lib_dev,
          "shape": list(h2o_flash), "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/"
@@ -351,7 +410,8 @@ def phase_kernels(torch, seed: int) -> list:
                      "decode_attention.py:55",
          "launches": None, "max_abs_err": decode_cases[-1]["max_abs_err"],
          "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
-         "bound_by": d_by, "library_ms": d_lib,
+         "bound_by": d_by, "library_ms": d_lib, "device_ms": d_dev,
+         "library_device_ms": d_lib_dev,
          "shape": list(h2o_decode), "cases": decode_cases},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
@@ -359,7 +419,8 @@ def phase_kernels(torch, seed: int) -> list:
          "launches": None, "max_abs_err": wkv["cases"][-1]["max_abs_err"],
          "ms": wkv["ms"], "plain_ms": wkv["plain_ms"],
          "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "device_ms": wkv["device_ms"],
+         "library_device_ms": None,
          "library_note": "no PyTorch call computes the WKV6 recurrence",
          "shape": wkv["shape"], "grad_err": wkv["grad_err"],
          "fwd_bwd_ms": wkv["fwd_bwd_ms"],
@@ -428,6 +489,7 @@ def _wkv6_kernel(torch, gen) -> dict:
                    for a, b in zip(got, want))
 
     ms = _time_ms(lambda i: wops.wkv6(*inputs), reps=10)
+    device_ms = _device_ms(torch, lambda i: wops.wkv6(*inputs), reps=10)
     # one layer's train-path WKV6: the kernel's forward and the backward
     # (the chunked form recomputed under autograd); the first call, which
     # also pays the caching allocator's first allocation of the chunked
@@ -447,7 +509,7 @@ def _wkv6_kernel(torch, gen) -> dict:
     return {"cases": cases, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": list(shape), "grad_err": grad_err,
-            "fwd_bwd_ms": train_ms}
+            "fwd_bwd_ms": train_ms, "device_ms": device_ms}
 
 
 def _config(arch, **replace):
@@ -580,16 +642,11 @@ def _profile_decode(torch, cfg, params, prompts, tokens, steady_s) -> dict:
                 _, caches, _ = step(params, caches, tokens[:, t - 1:t])
             torch.cuda.synchronize()
             traced_s = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name = _device_spans(torch, prof), {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted(spans):           # the union of the device spans
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
+    busy_us = _busy_us(spans)
     out = {"steps": PROFILE_STEPS, "traced_step_ms":
            traced_s / PROFILE_STEPS * 1e3,
            "device_events_per_step": len(spans) / PROFILE_STEPS}

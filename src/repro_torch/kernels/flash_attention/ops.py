@@ -82,7 +82,8 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     differentiable.
 
     CPU tensors go through `flash_attention_ref`; CUDA tensors launch the
-    kernel (float32 or bfloat16, d in 32/64/80/112/128) or raise.
+    kernel (d in 32/64/80/112/128: bfloat16 on tensor cores, float32 on
+    CUDA cores) or raise.
     """
     return _FlashAttention.apply(q, k, v, causal, window)
 

@@ -53,6 +53,28 @@ def test_flash_attention_kernel_on_card(cuda_device, B, S, H, K, d, causal,
                                         causal=causal, window=win))
 
 
+# bf16 takes the tensor-core kernel: every head dim at S = 300, which is not
+# a multiple of its 128-row q-tile and spans three of them; H / K = 1, 4, 8;
+# causal with and without a window, and non-causal with and without one
+FLASH_BF16_MASKS = [(8, 8, True, None), (8, 2, True, 100),   # H, K, causal,
+                    (8, 1, False, None), (8, 2, False, 100)]  # window
+
+
+@pytest.mark.parametrize("H,K,causal,win", FLASH_BF16_MASKS)
+@pytest.mark.parametrize("d", [32, 64, 80, 112, 128])
+def test_flash_attention_bf16_every_head_dim_on_card(cuda_device, d, H, K,
+                                                     causal, win):
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in flash_inputs(d, 2, 300, H, K, d))
+    n = fops.flash_attention.launches
+    o = fops.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == n + 1
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    _assert_held(o, flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal=causal, window=win))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,W,H,K,d", DECODE_SWEEP)
 def test_decode_attention_kernel_on_card(cuda_device, B, W, H, K, d, dtype):
