@@ -319,12 +319,15 @@ def phase_kernels(torch, seed: int) -> list:
     kv_pos = last - ((last - slots) % window)
     ring = ((kv_pos >= 0) & (kv_pos <= last)).expand(BATCH, window)
     h2o_decode = (BATCH, window, H, K, d)
-    for dt in (torch.float32, torch.bfloat16):
+    # (q, cache) dtypes: float32, bf16, and a bf16 cache under float32 q
+    for qt, ct in ((torch.float32, torch.float32),
+                   (torch.bfloat16, torch.bfloat16),
+                   (torch.float32, torch.bfloat16)):
         for case in DECODE_SWEEP + [h2o_decode]:
             B, W, Hc, Kc, dc = case
-            q = _randn(torch, gen, (B, 1, Hc, dc), dt)
-            k = _randn(torch, gen, (B, W, Kc, dc), dt)
-            v = _randn(torch, gen, (B, W, Kc, dc), dt)
+            q = _randn(torch, gen, (B, 1, Hc, dc), qt)
+            k = _randn(torch, gen, (B, W, Kc, dc), ct)
+            v = _randn(torch, gen, (B, W, Kc, dc), ct)
             valid = (ring if case == h2o_decode else
                      torch.rand((B, W), generator=gen, device=DEVICE) < 0.8)
             bias = _bias(torch, valid)
@@ -332,7 +335,8 @@ def phase_kernels(torch, seed: int) -> list:
             torch.cuda.synchronize()
             gold = decode_attention_ref(q.float(), k.float(), v.float(),
                                         bias)
-            decode_cases.append(_held(torch, o, gold, case, dt))
+            decode_cases.append(_held(
+                torch, o, gold, case, qt if qt == ct else f"{qt}/{ct}"))
     # time over 8 caches (8 x 42 MB, beyond the 50 MB L2), as the 24 layers'
     # caches are cold when a decode step reaches them
     n_sets = 8

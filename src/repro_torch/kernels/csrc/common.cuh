@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace repro_torch {
 
 // Finite "minus infinity": a fully masked row then gives exp(0) garbage that
@@ -73,6 +75,22 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src,
 #pragma unroll
     for (int u = 0; u < N; ++u) dst[r * ld + c + u] = tmp[u] * scale;
   }
+}
+
+// Raises the dynamic shared-memory limit of `kernel` to `bytes` the first
+// time it is launched on the current device (one bit of `done` a device).
+inline cudaError_t allow_smem(const void* kernel, size_t bytes,
+                              std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = uint64_t{1} << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
 }  // namespace repro_torch

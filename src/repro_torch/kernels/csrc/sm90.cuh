@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks written by hand: mbarriers, TMA loads,
-// wgmma shared-memory descriptors and the wgmma instructions the port's
-// tensor-core kernels use.
+// Hopper (sm_90a) building blocks written by hand: cp.async copies,
+// mbarriers, TMA loads, thread-block-cluster barriers and distributed
+// shared-memory reads, ldmatrix and mma.sync, wgmma shared-memory
+// descriptors and the wgmma instructions the port's tensor-core kernels
+// use.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +52,62 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   }
 }
+// cp.async: 16 (or 4) bytes from device memory at `src` into shared memory
+// at `dst`, both aligned to the size, in flight until the thread waits for
+// its group. With ok false nothing is read and `dst` is zero-filled (`src`
+// must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+// Closes the group of this thread's copies started since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Thread-block clusters: a barrier of all threads of the cluster (release /
+// acquire: shared-memory writes before it are seen by every block of the
+// cluster after it), its split form, and reads and writes of another
+// block's shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The split form: arrive early (relaxed: orders nothing), wait later. A
+// block arrives when it starts and waits before its first access to
+// another block's shared memory, which then has surely started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// Stores x at `p`, an address in this block's shared memory, into the same
+// place in block `rank`'s.
+__device__ __forceinline__ void st_cluster(float* p, int rank, float x) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(x)
+               : "memory");
+}
 // TMA: the box at coordinates (c0, c1, c2, c3) of a 4-d tensor map into
 // shared memory, completing `bytes` of the mbarrier's transaction count.
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
@@ -60,6 +118,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i
+// + 7 giving the 16-byte row addresses of matrix i; thread t receives
+// elements (t / 4, 2 (t % 4) + {0, 1}) of each (the _t form: the
+// transposes'). mma_16816: D (16 x 8, float32) += A (16 x 16, bf16, four
+// registers, row-major) * B (16 x 8, bf16, two registers, column-major),
+// in the fragment layouts of PTX's mma.m16n8k16.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x by the special-function unit, subnormal results flushed to 0.

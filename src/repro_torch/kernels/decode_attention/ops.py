@@ -4,9 +4,10 @@ CPU tensors.
 Port of `repro/kernels/decode_attention/ops.py::decode_attention`. The
 kernel reads q (B,1,H,d) and the cache (B,W,K,d) in place and masks the
 ragged W edge itself, so the TPU wrapper's regrouping and padding do not
-carry over. It splits W across blocks and merges the partials in a second
-launch of the same call; `launches` counts calls, one per decode step and
-layer.
+carry over. It splits W across the blocks of a thread-block cluster, one
+cluster per (batch, kv head), and merges their partials in the same launch;
+`split_plan` sizes the split for the card. `launches` counts calls, one per
+decode step and layer.
 """
 from __future__ import annotations
 
@@ -23,15 +24,37 @@ _NAME = "decode_attention"
 # (q dtype, cache dtype) pairs the kernel is built for
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)}
-# decode_attention_fwd(q, k, v, bias, part_m, part_l, part_acc, out, B, W,
-#                      H, K, d, q_dtype, kv_dtype, nsplit, scale, stream)
+# decode_attention_fwd(q, k, v, bias, out, B, W, H, K, d, q_dtype,
+#                      kv_dtype, chunks_per_split, scale, stream)
 # in csrc/decode_attention.cu
-ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
-# CH and MAXG of csrc/decode_attention.cu, checked against the library
-# when it loads
-SLOTS_PER_BLOCK = 128
+# CH, MAXG and MAX_SPLITS of csrc/decode_attention.cu, checked against the
+# library when it loads
+SLOTS_PER_CHUNK = 128
 MAX_GROUP = 16
+MAX_SPLITS = 8
+# blocks an SM the split plans for: the bf16 kernel's two at d <= 80
+# (its `__launch_bounds__`). At h2o-danube's shape (B * K = 32 on 132
+# SMs) MAX_SPLITS binds first: 8 splits, 256 blocks, for two or three.
+BLOCKS_PER_SM = 2
+
+
+def split_plan(W: int, B: int, K: int, n_sm: int) -> tuple[int, int]:
+    """(chunks of SLOTS_PER_CHUNK slots per split, splits) for a W-slot
+    cache: enough splits of each (batch, kv head) that B * K * splits
+    blocks fill the card's n_sm SMs once, at most MAX_SPLITS, and no split
+    left empty."""
+    chunks = -(-W // SLOTS_PER_CHUNK)
+    fill = -(-BLOCKS_PER_SM * n_sm // (B * K))
+    want = min(MAX_SPLITS, chunks, max(1, fill))
+    per = -(-chunks // want)
+    return per, -(-chunks // per)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -39,8 +62,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     lib.decode_attention_fwd.argtypes = ARGTYPES
     lib.decode_attention_fwd.restype = ctypes.c_int
-    for name, want in (("decode_attention_slots_per_block", SLOTS_PER_BLOCK),
-                       ("decode_attention_max_group", MAX_GROUP)):
+    for name, want in (("decode_attention_slots_per_chunk", SLOTS_PER_CHUNK),
+                       ("decode_attention_max_group", MAX_GROUP),
+                       ("decode_attention_max_splits", MAX_SPLITS)):
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ctypes.c_int
@@ -78,19 +102,13 @@ def decode_attention(q, k, v, bias):
         raise ValueError(f"{_NAME}: {G} query heads per kv head; the kernel "
                          f"takes at most {MAX_GROUP}")
     lib = _lib()
-    nsplit = -(-W // SLOTS_PER_BLOCK)
-    # the partials in one float32 buffer: m (B,K,nsplit,G), then l of the
-    # same shape, then acc (B,K,nsplit,G,d)
-    n = B * K * nsplit * G
-    part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    per, _ = split_plan(W, B, K, _sm_count(q.device.index))
     out = torch.empty_like(q)
-    ptr = part.data_ptr()
     with torch.cuda.device(q.device):
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            ptr, ptr + 4 * n, ptr + 8 * n,
             out.data_ptr(), B, W, H, K, d, _launch.DTYPE_CODES[q.dtype],
-            _launch.DTYPE_CODES[k.dtype], nsplit, 1.0 / math.sqrt(d),
+            _launch.DTYPE_CODES[k.dtype], per, 1.0 / math.sqrt(d),
             _launch.stream_handle(q))
     _launch.raise_on_error(_NAME, err, lib, "decode_attention_error_string")
     decode_attention.launches += 1

@@ -493,22 +493,6 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int S,
 
 }  // namespace tc
 
-// Raises the dynamic shared-memory limit of `kernel` to `bytes` the first
-// time it is launched on the current device (one bit of `done` a device).
-inline cudaError_t allow_smem(const void* kernel, size_t bytes,
-                              std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = uint64_t{1} << (dev & 63);
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int K, int causal, int window,

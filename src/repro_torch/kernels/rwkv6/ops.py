@@ -1,9 +1,9 @@
 """RWKV6 WKV: the CUDA kernel for CUDA tensors, the plain version for CPU
 tensors, with a gradient.
 
-Port of `repro/kernels/rwkv6/ops.py::wkv6`. The kernel walks the tokens
-one by one, so the TPU wrapper's padding of S to the chunk does not carry
-over. As in the reference's `custom_vjp`, there is no backward kernel: the
+Port of `repro/kernels/rwkv6/ops.py::wkv6`. The kernel runs the
+recurrence token by token over chunks it stages itself, zero-filling a
+ragged last chunk, so the TPU wrapper's padding of S does not carry over. As in the reference's `custom_vjp`, there is no backward kernel: the
 backward recomputes a plain version from a zero state under autograd. The
 reference recomputes its per-token oracle; here that is a Python loop of
 small launches per token (3.3 s a layer at rwkv6-7b's training shape on an

@@ -102,6 +102,59 @@ def test_decode_attention_kernel_bf16_cache_under_f32_query(cuda_device):
     _assert_held(o, decode_attention_ref(q, k.float(), v.float(), bias))
 
 
+# the edges of the one-launch design: B, W, H, K, d and the mask. "split s"
+# masks every slot of split s (as `split_plan` cuts W on this card), which
+# must add nothing in the cluster's merge; the W are not multiples of a
+# tile (128 slots at d <= 80 in bf16, fewer for wider rows) or span one
+# tile; G = H / K is 1, 2, 8 and 16
+DECODE_EDGES = [(1, 1024, 16, 1, 64, "split 0"),
+                (1, 4096, 4, 1, 112, "split 1"),
+                (2, 300, 4, 4, 80, "random"),
+                (1, 777, 32, 2, 128, "split 0"),
+                (2, 33, 16, 1, 32, "random"),
+                (3, 1000, 8, 4, 80, "random")]
+DTYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
+               ("float32", "bfloat16")]   # (q, cache)
+
+
+@pytest.mark.parametrize("qt,ct", DTYPE_PAIRS)
+@pytest.mark.parametrize("B,W,H,K,d,mask", DECODE_EDGES)
+def test_decode_attention_edges_on_card(cuda_device, B, W, H, K, d, mask,
+                                        qt, ct):
+    q, k, v, bias = decode_inputs(3, B, W, H, K, d)
+    q = torch.from_numpy(q).to(cuda_device, getattr(torch, qt))
+    k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, ct))
+            for x in (k, v))
+    bias = torch.from_numpy(bias).to(cuda_device)
+    if mask != "random":
+        n_sm = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        per, nsplit = dops.split_plan(W, B, K, n_sm)
+        s = int(mask.split()[1])
+        assert s < nsplit
+        span = per * dops.SLOTS_PER_CHUNK
+        bias[:, s * span:(s + 1) * span] = -1e30
+    n = dops.decode_attention.launches
+    o = dops.decode_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == n + 1
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert torch.isfinite(o).all()
+    _assert_held(o, decode_attention_ref(q.float(), k.float(), v.float(),
+                                         bias))
+
+
+def test_decode_attention_is_deterministic_on_card(cuda_device):
+    """The cluster merges its splits in split order, not in order of
+    arrival: the same inputs give the same bits."""
+    q, k, v, bias = (torch.from_numpy(x).to(cuda_device)
+                     for x in decode_inputs(4, 4, 4096, 32, 8, 80))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    first = dops.decode_attention(q, k, v, bias)
+    for _ in range(5):
+        assert torch.equal(dops.decode_attention(q, k, v, bias), first)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 16, 2, 48), device=cuda_device)   # d=48: not built
     kv = torch.zeros((1, 16, 1, 48), device=cuda_device)
@@ -123,6 +176,24 @@ def test_wkv6_kernel_on_card(cuda_device, B, H, S, d):
     """float32 in and out: held against wkv6_ref on the card to the
     reference's 1e-4."""
     r, k, v, lw, u = _wkv6_on_card(cuda_device, *wkv6_inputs(0, B, H, S, d))
+    n = wops.wkv6.launches
+    o, s = wops.wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert wops.wkv6.launches == n + 1
+    ro, rs = wkv6_ref(r, k, v, lw, u, torch.zeros_like(s))
+    np.testing.assert_allclose(to_np(o), to_np(ro), atol=WKV6_TOL, rtol=0)
+    np.testing.assert_allclose(to_np(s), to_np(rs), atol=WKV6_TOL, rtol=0)
+
+
+# the kernel stages chunks of 16 tokens (32 at d = 16): S = 1, one below and
+# one above a multiple of the chunk, and d = 16, 32, 64 (B, H, S, d)
+WKV6_EDGES = [(1, 2, 1, 64), (2, 2, 31, 64), (1, 3, 33, 32), (1, 2, 95, 16),
+              (2, 1, 97, 64), (1, 2, 64, 16)]
+
+
+@pytest.mark.parametrize("B,H,S,d", WKV6_EDGES)
+def test_wkv6_kernel_edges_on_card(cuda_device, B, H, S, d):
+    r, k, v, lw, u = _wkv6_on_card(cuda_device, *wkv6_inputs(5, B, H, S, d))
     n = wops.wkv6.launches
     o, s = wops.wkv6(r, k, v, lw, u)
     torch.cuda.synchronize()

@@ -162,11 +162,12 @@ def test_c_entries_match_the_ctypes_bindings():
     assert set(_launch.HEAD_DIMS) == {32, 64, 80, 112, 128}
 
 
-@pytest.mark.parametrize("const,attr", [("CH", "SLOTS_PER_BLOCK"),
-                                        ("MAXG", "MAX_GROUP")])
+@pytest.mark.parametrize("const,attr", [("CH", "SLOTS_PER_CHUNK"),
+                                        ("MAXG", "MAX_GROUP"),
+                                        ("MAX_SPLITS", "MAX_SPLITS")])
 def test_decode_wrapper_constants_match_the_kernel(const, attr):
-    """The wrapper sizes the partials and checks the group from Python
-    copies of the kernel's constants; they must agree with the source."""
+    """The wrapper plans the split and checks the group from Python copies
+    of the kernel's constants; they must agree with the source."""
     src = _build.sources()["decode_attention"].read_text()
     m = re.search(rf"constexpr int {const} = (\d+);", src)
     assert m and int(m.group(1)) == getattr(dops, attr)
