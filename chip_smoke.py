@@ -25,7 +25,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               kernel, plain version and one PyTorch library call (a
               yardstick only; none computes WKV6) with CUDA events, and
               the kernels' and library calls' device-only time with
-              torch.profiler;
+              torch.profiler; flash and decode attention also at the
+              shapes jamba-v0.1-52b's serve run gives them (d = 128,
+              G = 4, causal with no window; a 4,128-slot cache);
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -40,7 +42,26 @@ order; any failure ends the run with a non-zero exit and no result line:
               the plain path's. Last, trace a few decode steps with
               torch.profiler: device time and kernels per step, and the
               device's idle share against the steady decode step;
-5. train   -- (a) lovelock-20m at full size in float32: 3 train steps
+5. serve-hybrid -- serve jamba-v0.1-52b at full width, one period (8
+              of 32 layers: Mamba, MoE and one attention layer; random bf16
+              weights from --seed): batch 4, prompt 4096, 32 generated
+              tokens, through the kernels; check the launch counts (one
+              flash launch, 31 decode launches). Teacher-force the same
+              tokens through the plain path in bf16, recording every
+              expert choice of both paths: no choice may differ upstream
+              of the attention layer (the paths run the same code there),
+              at most HY_FLIP_SHARE of all (token, layer, k) choices may
+              differ, and at the positions whose own choices agree in
+              every MoE layer (at least half of them) the logits may
+              differ by at most HY_AGREE_TOL. A flipped near-tie moves a
+              token's output by O(1), so the excess-over-float32 gate of
+              phase 4 does not apply. Then the prefill's time by layer
+              function (CUDA events) and its top device ops
+              (torch.profiler), the decode step's idle share, and, with
+              the bf16 weights freed, the float32 gate: batch 1, prompt
+              1024, 8 decode steps through both paths, logits within 1e-4
+              at every position and identical expert choices;
+6. train   -- (a) lovelock-20m at full size in float32: 3 train steps
               from the same weights and batches through the kernel path
               and the plain path; losses within 1e-5 relative, the flash
               kernel launched once per layer per step and once more in the
@@ -59,11 +80,20 @@ order; any failure ends the run with a non-zero exit and no result line:
               tenth of the lr: no loss of the latter may exceed the
               initial weights' loss on the same batch by more than
               LOW_LR_RTOL;
-6. result  -- print the kernels' JSON line, then the device line.
+7. checkpoint -- (a) lovelock-20m in float32 through the kernel path:
+              4 steps of `train_loop` with a checkpoint every 2, the last
+              checkpoint removed, then a fresh `train_loop(resume=True)`
+              runs steps 3-4: losses within RESUME_RTOL of the straight
+              run's. (b) h2o-danube-1.8b's full-width bf16 params written
+              by the streaming checkpointer under build/ and read back
+              onto the card bit for bit, with write and read GB/s and at
+              most `buffers` x `chunk` bytes in flight; then deleted;
+8. result  -- print the kernels' JSON line, then the device line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -100,6 +130,28 @@ LOGIT_TOL_F32 = 1e-4       # float32 logits, the port's CPU parity tests
 BF16_EXCESS_TOL = 0.05   # read: 0.0231
 BF16_RMS_RATIO = 1.02    # read: 0.9990
 PROFILE_STEPS = 4          # decode steps traced by torch.profiler
+# the hybrid serve run: jamba-v0.1-52b at full width, one period (8 of its
+# 32 layers: 13.3 B parameters, 26.6 GB in bf16; all 32 do not fit one
+# 80 GB card), batch BATCH, prompt 4096 (a whole number of the Mamba scan's
+# 256-token chunks), GEN generated tokens
+HYBRID, HY_LAYERS, HY_PROMPT = "jamba-v0.1-52b", 8, 4096
+# its float32 gate, kernel path vs plain path: batch 1, prompt 1024 and 8
+# decode steps (fewer than GEN, to keep the phase short)
+HY_F32 = (1, 1024, 8)
+# its bf16 gate, kernel path vs plain path (PERF.md): a routing choice that
+# flips on a near-tie moves its token's output by O(1), so the gate bounds
+# the share of (token, layer, k) choices that differ, and the logit gap at
+# positions whose own choices agree in every MoE layer. Limits about ten
+# and three times the first full run's readings on the H100; a fault in
+# the attention path would flip a large share of the choices after it
+HY_FLIP_SHARE = 2e-3       # read: 2.120e-04 (28 of 132,064)
+HY_AGREE_TOL = 0.1         # read: 0.0312 (128 of 128 positions agreeing)
+TOP_OPS = 12               # device ops of the prefill listed
+# the checkpoint phase: resume through train_loop (arch, batch, seq,
+# steps, checkpoint every), held to RESUME_RTOL; then h2o-danube-1.8b's
+# params written and read back
+CKPT_RESUME = ("lovelock-20m", 8, 256, 4, 2)
+RESUME_RTOL = 1e-6
 # wkv6: the reference's sweep (tests/test_kernels.py:77-79) and rwkv6-7b's
 # training shape; float32 in and out, held to the reference's 1e-4
 # (tests/test_kernels.py:88)
@@ -262,8 +314,95 @@ def _held(torch, out, gold, case, dt) -> dict:
             "tol": f"{KERNEL_TOL} + {rel}|ref|", "ok": over <= KERNEL_TOL}
 
 
-def phase_kernels(torch, seed: int) -> list:
+def _ring_valid(torch, B, W, last):
+    """(B, W) validity of a ring cache of W slots after position `last`
+    was written (unwritten slots have negative positions)."""
+    slots = torch.arange(W, device=DEVICE)[None, :]
+    kv_pos = last - ((last - slots) % W)
+    return ((kv_pos >= 0) & (kv_pos <= last)).expand(B, W)
+
+
+def _flash_times(torch, gen, case) -> dict:
+    """The bf16 flash kernel at `case` (B, S, H, K, d, causal, window):
+    CUDA events, device-only (torch.profiler), the plain version, SDPA
+    (events and device-only) and the bound."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, S, H, K, d, causal, window = case
+    q = _randn(torch, gen, (B, S, H, d), torch.bfloat16)
+    k = _randn(torch, gen, (B, S, K, d), torch.bfloat16)
+    v = _randn(torch, gen, (B, S, K, d), torch.bfloat16)
+    f_call = lambda i: fops.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                            window=window)
+    ms = _time_ms(f_call, reps=10)
+    plain = _time_ms(lambda i: flash_attention_ref(
+        q, k, v, causal=causal, window=window), reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        f_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    else:
+        pos = torch.arange(S, device=DEVICE)
+        dlt = pos[:, None] - pos[None, :]
+        allowed = (dlt < window) & ((dlt >= 0) if causal else True)
+        f_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+    lib = _time_ms(f_sdpa, reps=5, warmup=1)
+    dev = _device_ms(torch, f_call, reps=10)
+    lib_dev = _device_ms(torch, f_sdpa, reps=5)
+    bound, by = _bound(4.0 * B * H * _visible_pairs(S, causal, window) * d,
+                       2 * q.nbytes + k.nbytes + v.nbytes, "bfloat16")
+    return {"shape": list(case), "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "device_ms": dev, "library_device_ms": lib_dev,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _decode_times(torch, gen, case, valid) -> dict:
+    """The bf16 decode kernel at `case` (B, W, H, K, d) with the (B, W)
+    mask `valid`, over 8 caches (beyond the 50 MB L2 when a cache is more
+    than 6 MB, as each layer's cache is cold when a decode step reaches
+    it): CUDA events, device-only, the plain version, SDPA and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    B, W, H, K, d = case
+    n_sets = 8
+    q = _randn(torch, gen, (B, 1, H, d), torch.bfloat16)
+    ks = [_randn(torch, gen, (B, W, K, d), torch.bfloat16)
+          for _ in range(n_sets)]
+    vs = [_randn(torch, gen, (B, W, K, d), torch.bfloat16)
+          for _ in range(n_sets)]
+    bias = _bias(torch, valid)
+    d_call = lambda i: dops.decode_attention(  # noqa: E731
+        q, ks[i % n_sets], vs[i % n_sets], bias)
+    ms = _time_ms(d_call, reps=80, warmup=8)
+    plain = _time_ms(lambda i: decode_attention_ref(
+        q, ks[i % n_sets], vs[i % n_sets], bias), reps=40, warmup=8)
+    qt = q.transpose(1, 2)
+    mask = bias[:, None, None, :]
+    d_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        qt, ks[i % n_sets].transpose(1, 2), vs[i % n_sets].transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+    lib = _time_ms(d_sdpa, reps=40, warmup=8)
+    dev = _device_ms(torch, d_call, reps=40, warmup=8)
+    lib_dev = _device_ms(torch, d_sdpa, reps=40, warmup=8)
+    bound, by = _bound(4.0 * B * H * W * d,
+                       2 * q.nbytes + ks[0].nbytes + vs[0].nbytes
+                       + bias.nbytes, "bfloat16")
+    return {"shape": list(case), "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "device_ms": dev, "library_device_ms": lib_dev,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _case_err(cases, case, dtype) -> float:
+    """max_abs_err of the held case of shape `case` and dtype `dtype`."""
+    return next(c["max_abs_err"] for c in cases
+                if c["shape"] == list(case) and c["dtype"] == str(dtype))
+
+
+def phase_kernels(torch, seed: int) -> list:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as fops
@@ -272,14 +411,18 @@ def phase_kernels(torch, seed: int) -> list:
     cfg = _h2o()
     H, K, d, window = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                        cfg.sliding_window)
+    hy = _hybrid()
     gen = torch.Generator(DEVICE).manual_seed(seed)
 
     # -- flash attention (prefill) --
     flash_cases = []
     h2o_flash = (BATCH, PROMPT, H, K, d, True, window)
+    # jamba's attention layer: d = 128, G = 4, causal, no window
+    hy_flash = (BATCH, HY_PROMPT, hy.num_heads, hy.num_kv_heads,
+                hy.head_dim, True, None)
     for dt in (torch.float32, torch.bfloat16):
         extra = FLASH_BF16_DIMS if dt == torch.bfloat16 else []
-        for case in FLASH_SWEEP + extra + [h2o_flash]:
+        for case in FLASH_SWEEP + extra + [hy_flash, h2o_flash]:
             B, S, Hc, Kc, dc, causal, win = case
             q = _randn(torch, gen, (B, S, Hc, dc), dt)
             k = _randn(torch, gen, (B, S, Kc, dc), dt)
@@ -290,46 +433,31 @@ def phase_kernels(torch, seed: int) -> list:
                                        causal=causal, window=win)
             flash_cases.append(_held(torch, o, gold, case, dt))
             del gold
-    q = _randn(torch, gen, (BATCH, PROMPT, H, d), torch.bfloat16)
-    k = _randn(torch, gen, (BATCH, PROMPT, K, d), torch.bfloat16)
-    v = _randn(torch, gen, (BATCH, PROMPT, K, d), torch.bfloat16)
-    f_call = lambda i: fops.flash_attention(q, k, v, causal=True,  # noqa: E731
-                                            window=window)
-    f_ms = _time_ms(f_call, reps=10)
-    f_plain = _time_ms(lambda i: flash_attention_ref(
-        q, k, v, causal=True, window=window), reps=3, warmup=1)
-    pos = torch.arange(PROMPT, device=DEVICE)
-    dlt = pos[:, None] - pos[None, :]
-    allowed = (dlt >= 0) & (dlt < window)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    f_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=allowed, enable_gqa=True)
-    f_lib = _time_ms(f_sdpa, reps=5, warmup=1)
-    f_dev = _device_ms(torch, f_call, reps=10)
-    f_lib_dev = _device_ms(torch, f_sdpa, reps=5)
-    pairs = _visible_pairs(PROMPT, True, window)
-    f_bound, f_by = _bound(4.0 * BATCH * H * pairs * d,
-                           2 * q.nbytes + k.nbytes + v.nbytes, "bfloat16")
-    del q, k, v, qt, kt, vt, allowed
+    f_times = _flash_times(torch, gen, h2o_flash)
+    f_hy = _flash_times(torch, gen, hy_flash)
 
     # -- decode attention --
     decode_cases = []
-    last = PROMPT + GEN - 1            # the last decode step's position
-    slots = torch.arange(window, device=DEVICE)[None, :]
-    kv_pos = last - ((last - slots) % window)
-    ring = ((kv_pos >= 0) & (kv_pos <= last)).expand(BATCH, window)
+    # the last decode step's cache: h2o's ring of `window` slots has
+    # wrapped, jamba's cache of prompt + gen slots has not
+    ring = _ring_valid(torch, BATCH, window, PROMPT + GEN - 1)
     h2o_decode = (BATCH, window, H, K, d)
+    hy_W = HY_PROMPT + GEN
+    hy_valid = _ring_valid(torch, BATCH, hy_W, HY_PROMPT + GEN - 2)
+    hy_decode = (BATCH, hy_W, hy.num_heads, hy.num_kv_heads, hy.head_dim)
     # (q, cache) dtypes: float32, bf16, and a bf16 cache under float32 q
     for qt, ct in ((torch.float32, torch.float32),
                    (torch.bfloat16, torch.bfloat16),
                    (torch.float32, torch.bfloat16)):
-        for case in DECODE_SWEEP + [h2o_decode]:
+        for case in DECODE_SWEEP + [hy_decode, h2o_decode]:
             B, W, Hc, Kc, dc = case
             q = _randn(torch, gen, (B, 1, Hc, dc), qt)
             k = _randn(torch, gen, (B, W, Kc, dc), ct)
             v = _randn(torch, gen, (B, W, Kc, dc), ct)
-            valid = (ring if case == h2o_decode else
-                     torch.rand((B, W), generator=gen, device=DEVICE) < 0.8)
+            valid = {h2o_decode: ring, hy_decode: hy_valid}.get(case)
+            if valid is None:
+                valid = torch.rand((B, W), generator=gen,
+                                   device=DEVICE) < 0.8
             bias = _bias(torch, valid)
             o = dops.decode_attention(q, k, v, bias)
             torch.cuda.synchronize()
@@ -337,32 +465,8 @@ def phase_kernels(torch, seed: int) -> list:
                                         bias)
             decode_cases.append(_held(
                 torch, o, gold, case, qt if qt == ct else f"{qt}/{ct}"))
-    # time over 8 caches (8 x 42 MB, beyond the 50 MB L2), as the 24 layers'
-    # caches are cold when a decode step reaches them
-    n_sets = 8
-    q = _randn(torch, gen, (BATCH, 1, H, d), torch.bfloat16)
-    ks = [_randn(torch, gen, (BATCH, window, K, d), torch.bfloat16)
-          for _ in range(n_sets)]
-    vs = [_randn(torch, gen, (BATCH, window, K, d), torch.bfloat16)
-          for _ in range(n_sets)]
-    bias = _bias(torch, ring)
-    d_call = lambda i: dops.decode_attention(  # noqa: E731
-        q, ks[i % n_sets], vs[i % n_sets], bias)
-    d_ms = _time_ms(d_call, reps=80, warmup=8)
-    d_plain = _time_ms(lambda i: decode_attention_ref(
-        q, ks[i % n_sets], vs[i % n_sets], bias), reps=40, warmup=8)
-    qt = q.transpose(1, 2)
-    mask = bias[:, None, None, :]
-    d_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-        qt, ks[i % n_sets].transpose(1, 2), vs[i % n_sets].transpose(1, 2),
-        attn_mask=mask, enable_gqa=True)
-    d_lib = _time_ms(d_sdpa, reps=40, warmup=8)
-    d_dev = _device_ms(torch, d_call, reps=40, warmup=8)
-    d_lib_dev = _device_ms(torch, d_sdpa, reps=40, warmup=8)
-    d_bound, d_by = _bound(4.0 * BATCH * H * window * d,
-                           2 * q.nbytes + ks[0].nbytes + vs[0].nbytes
-                           + bias.nbytes, "bfloat16")
-    del ks, vs
+    d_times = _decode_times(torch, gen, h2o_decode, ring)
+    d_hy = _decode_times(torch, gen, hy_decode, hy_valid)
 
     wkv = _wkv6_kernel(torch, gen)
 
@@ -378,14 +482,14 @@ def phase_kernels(torch, seed: int) -> list:
                 bad.append((name, c["shape"], c["dtype"], c["over_rel"]))
     if bad:
         _fail(f"kernels disagree with their plain versions: {bad}")
-    print(f"  flash_attention at {list(h2o_flash)} bf16: {f_ms:.4f} ms "
-          f"(plain {f_plain:.3f} ms, SDPA {f_lib:.4f} ms, bound "
-          f"{f_bound:.4f} ms by {f_by}); device only {_fmt(f_dev)} ms, "
-          f"SDPA {_fmt(f_lib_dev)} ms")
-    print(f"  decode_attention at {list(h2o_decode)} bf16: {d_ms:.4f} ms "
-          f"(plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms, bound "
-          f"{d_bound:.4f} ms by {d_by}); device only {_fmt(d_dev)} ms, "
-          f"SDPA {_fmt(d_lib_dev)} ms")
+    for name, t in (("flash_attention", f_times), ("flash_attention", f_hy),
+                    ("decode_attention", d_times),
+                    ("decode_attention", d_hy)):
+        print(f"  {name} at {t['shape']} bf16: {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']}); device only "
+              f"{_fmt(t['device_ms'])} ms, SDPA "
+              f"{_fmt(t['library_device_ms'])} ms")
     print(f"  wkv6 at {wkv['shape']} float32: {wkv['ms']:.4f} ms (plain "
           f"{wkv['plain_ms']:.3f} ms, no library call computes WKV6, bound "
           f"{wkv['bound_ms']:.4f} ms by {wkv['bound_by']}; device only "
@@ -403,20 +507,18 @@ def phase_kernels(torch, seed: int) -> list:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
          "launches": None, "max_abs_err": flash_cases[-1]["max_abs_err"],
-         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
-         "bound_by": f_by, "library_ms": f_lib, "device_ms": f_dev,
-         "library_device_ms": f_lib_dev,
-         "shape": list(h2o_flash), "cases": flash_cases},
+         **f_times, "at_" + HYBRID: dict(f_hy, max_abs_err=_case_err(
+             flash_cases, hy_flash, torch.bfloat16)),
+         "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/"
                      "decode_attention.py:55",
          "launches": None, "max_abs_err": decode_cases[-1]["max_abs_err"],
-         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
-         "bound_by": d_by, "library_ms": d_lib, "device_ms": d_dev,
-         "library_device_ms": d_lib_dev,
-         "shape": list(h2o_decode), "cases": decode_cases},
+         **d_times, "at_" + HYBRID: dict(d_hy, max_abs_err=_case_err(
+             decode_cases, hy_decode, torch.bfloat16)),
+         "cases": decode_cases},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6/rwkv6.py:70",
@@ -525,6 +627,10 @@ def _h2o():
     return _config(ARCH)
 
 
+def _hybrid(**replace):
+    return _config(HYBRID, num_layers=HY_LAYERS, **replace)
+
+
 def phase_serve(torch, seed: int, card: str) -> dict:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
@@ -631,7 +737,8 @@ def _profile_decode(torch, cfg, params, prompts, tokens, steady_s) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill, make_serve_step
-    caches = M.init_caches(cfg, BATCH, PROMPT + GEN, device=DEVICE)
+    (B, P), G = prompts.shape, tokens.shape[1]
+    caches = M.init_caches(cfg, B, P + G, device=DEVICE)
     prefill = make_prefill(cfg)
     step = make_serve_step(cfg)
     with torch.no_grad():
@@ -671,6 +778,384 @@ def _profile_decode(torch, cfg, params, prompts, tokens, steady_s) -> dict:
           f"{steady_s * 1e3:.2f} ms: idle share {out['idle_share']:.4f}")
     for n, ms in out["top_device_ms_per_step"].items():
         print(f"    {ms:.4f} ms/step  {n[:90]}")
+    return out
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Record each `_moe_route` call's (expert ids, kept), both (N, K) on
+    the card, in call order, by wrapping the module function that the MoE
+    layer calls; nothing in the model changes."""
+    from repro_torch.models import layers as L
+    calls, real = [], L._moe_route
+
+    def recording(p, xt, moe_cfg):
+        out = real(p, xt, moe_cfg)
+        calls.append((out[1], out[0] > 0))
+        return out
+    L._moe_route = recording
+    try:
+        yield calls
+    finally:
+        L._moe_route = real
+
+
+def _route_diffs(torch, cfg, a, b, shape) -> dict:
+    """Two teacher-forced runs' recorded routes, prefill then one pass per
+    decode step, compared choice by choice. `shape` is (B, P, G). Returns
+    the differing (token, layer, k) choices by MoE layer, their total, the
+    MoE layers upstream of the first attention layer, and `agree` (B, G):
+    the positions whose own choices agree in every MoE layer. A token's MoE
+    output depends only on its own choices and gates, and the one attention
+    layer is the period's last, so no later mixer carries another
+    position's flip to an agreeing one."""
+    from repro_torch.models import model as M
+    B, P, G = shape
+    specs = M.block_specs(cfg)
+    n_per = cfg.num_layers // len(specs)
+    moe_at = [li * len(specs) + i for li in range(n_per)
+              for i, sp in enumerate(specs) if sp["ffn"] == "moe"]
+    first_attn = min(i for i, sp in enumerate(specs) if sp["kind"] == "attn")
+    if not len(a) == len(b) == len(moe_at) * G:
+        _fail(f"{cfg.name}: {len(a)} and {len(b)} routing calls, expected "
+              f"{len(moe_at) * G}")
+    by_layer = [0] * len(moe_at)
+    total = 0
+    agree = torch.ones((B, G), dtype=torch.bool, device=DEVICE)
+    for c, ((ia, ka), (ib, kb)) in enumerate(zip(a, b)):
+        t, j = divmod(c, len(moe_at))
+        diff = (ia != ib) | (ka != kb)                       # (N, K)
+        by_layer[j] += int(diff.sum())
+        total += diff.numel()
+        mine = diff.any(-1)
+        agree[:, t] &= ~(mine.reshape(B, P)[:, -1] if t == 0 else mine)
+    return {"differing_by_layer": dict(zip(moe_at, by_layer)),
+            "differing": sum(by_layer), "choices": total,
+            "upstream_layers": [x for x in moe_at if x < first_attn],
+            "agree": agree}
+
+
+def _prefill_split(torch, cfg, params, prompts) -> dict:
+    """CUDA-event time of each layer function of `models.layers` over one
+    kernel-path prefill (the functions wrapped for this run only; nested
+    ones are inside their callers' time)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill
+    names = ("moe_ffn", "_expert_ffn", "mamba", "_mamba_ssm_chunked",
+             "self_attention", "swiglu")
+    real = {n: getattr(L, n) for n in names}
+    spans = {n: [] for n in names}
+
+    def timed(name):
+        def call(*a, **k):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = real[name](*a, **k)
+            e.record()
+            spans[name].append((s, e))
+            return out
+        return call
+    caches = M.init_caches(cfg, prompts.shape[0], prompts.shape[1] + GEN,
+                           device=DEVICE)
+    prefill = make_prefill(cfg)
+    for n in names:
+        setattr(L, n, timed(n))
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            prefill(params, caches, {"tokens": prompts})
+            e.record()
+            torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(L, n, real[n])
+    out = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in spans.items()}
+    out["calls"] = {n: len(v) for n, v in spans.items()}
+    out["prefill"] = s.elapsed_time(e)
+    return out
+
+
+def _profile_prefill(torch, cfg, params, prompts) -> dict:
+    """One kernel-path prefill under torch.profiler: device busy ms and the
+    TOP_OPS device ops by their summed time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill
+    caches = M.init_caches(cfg, prompts.shape[0], prompts.shape[1] + GEN,
+                           device=DEVICE)
+    prefill = make_prefill(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prefill(params, caches, {"tokens": prompts})
+            torch.cuda.synchronize()
+    spans, by_name = _device_spans(torch, prof), {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] = (by_name.get(ev.name, 0)
+                                + ev.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_OPS]
+    return {"device_busy_ms": _busy_us(spans) / 1e3 if spans else None,
+            "device_events": len(spans),
+            "top_device_ms": {n: us / 1e3 for n, us in top}}
+
+
+def _hybrid_f32_gate(torch, seed: int) -> dict:
+    """jamba at full width (one period) in float32: the kernel path and the
+    plain path teacher-forced over the same random prompt and tokens, with
+    float32 caches; logits within LOGIT_TOL_F32 at every position and the
+    same expert choices in every MoE layer."""
+    from repro_torch.models import model as M
+    B, P, steps = HY_F32
+    cfg = _hybrid(param_dtype="float32", compute_dtype="float32")
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    g = torch.Generator(DEVICE).manual_seed(seed + 2)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=DEVICE,
+                            generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (B, steps + 1), device=DEVICE,
+                           generator=g)
+    runs = {}
+    for use_kernels in (True, False):
+        with _recorded_routes() as routes:
+            logits, _ = _teacher_forced(cfg, params, prompts, tokens,
+                                        use_kernels, torch.float32)
+        runs[use_kernels] = (logits, routes)
+    del params
+    torch.cuda.empty_cache()
+    d = _route_diffs(torch, cfg, runs[True][1], runs[False][1],
+                     (B, P, steps + 1))
+    err = (runs[True][0] - runs[False][0]).abs().max().item()
+    print(f"  float32 (batch {B}, prompt {P}, {steps} decode steps), kernel "
+          f"path vs plain path: max |dlogit| {err:.3e} (tol "
+          f"{LOGIT_TOL_F32}); differing expert choices {d['differing']} of "
+          f"{d['choices']} (tol 0)")
+    if not err <= LOGIT_TOL_F32:
+        _fail(f"{HYBRID} float32: logits differ by {err} > {LOGIT_TOL_F32}")
+    if d["differing"]:
+        _fail(f"{HYBRID} float32: {d['differing']} expert choices differ "
+              f"between the paths")
+    return {"batch": B, "prompt": P, "decode_steps": steps,
+            "max_abs_logit_err": err, "differing_choices": d["differing"],
+            "choices": d["choices"]}
+
+
+def phase_serve_hybrid(torch, seed: int, card: str) -> tuple:
+    """jamba-v0.1-52b, one period at full width: serve through the
+    kernels, the bf16 and float32 gates, and where the time goes."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    cfg = _hybrid()
+    specs = M.block_specs(cfg)
+    n_attn = (sum(sp["kind"] == "attn" for sp in specs)
+              * (cfg.num_layers // len(specs)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    weights_gb = sum(p.nbytes for p in leaves) / 1e9
+    del leaves
+    prompts = torch.randint(
+        0, cfg.vocab_size, (BATCH, HY_PROMPT), device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(seed + 1))
+
+    fops.flash_attention.launches = 0
+    dops.decode_attention.launches = 0
+    with _recorded_routes() as kernel_routes:
+        tokens, stats, logits = serve(cfg, batch=BATCH, prompt_len=HY_PROMPT,
+                                      gen=GEN, seed=seed, use_kernels=True,
+                                      device=DEVICE, params=params,
+                                      prompts=prompts)
+    launches = {"flash_attention": fops.flash_attention.launches,
+                "decode_attention": dops.decode_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": n_attn,
+            "decode_attention": n_attn * (GEN - 1)}
+    print(f"  launches {launches} (expected {want})")
+    if launches != want:
+        _fail(f"serve {HYBRID} launched {launches}, expected {want}")
+    Vp = cfg.padded_vocab()
+    if tuple(tokens.shape) != (BATCH, GEN) or tuple(logits.shape) != (
+            BATCH, GEN, Vp):
+        _fail(f"{HYBRID} shapes: tokens {tuple(tokens.shape)}, logits "
+              f"{tuple(logits.shape)}")
+    if not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
+        _fail(f"{HYBRID}: generated token ids out of the vocabulary")
+    if not bool(torch.isfinite(logits).all()):
+        _fail(f"{HYBRID}: non-finite logits on the kernel path")
+    print(f"  serve {HYBRID} ({cfg.num_layers} of 32 layers, bf16, "
+          f"{n_params / 1e9:.3f} B params, {weights_gb:.2f} GB of weights) "
+          f"batch {BATCH} prompt {HY_PROMPT} gen {GEN} on {card}: prefill "
+          f"{stats['prefill_tokens_per_s']:.1f} tok/s "
+          f"({stats['prefill_s']:.4f} s), decode "
+          f"{stats['decode_tokens_per_s']:.1f} tok/s "
+          f"({stats['decode_s']:.4f} s; first step "
+          f"{stats['decode_first_step_s'] * 1e3:.2f} ms, steady "
+          f"{stats['decode_steady_step_s'] * 1e3:.2f} ms/step = "
+          f"{stats['decode_steady_tokens_per_s']:.1f} tok/s); peak memory "
+          f"{peak_gb:.2f} GB")
+    print(f"  greedy tokens (not gated): {tokens.tolist()}")
+
+    # bf16: the plain path teacher-forced with the kernel path's tokens
+    with _recorded_routes() as plain_routes:
+        plain, plain_s = _teacher_forced(cfg, params, prompts, tokens, False,
+                                         torch.bfloat16)
+    d = _route_diffs(torch, cfg, kernel_routes, plain_routes,
+                     (BATCH, HY_PROMPT, GEN))
+    del kernel_routes, plain_routes
+    gap = (logits - plain).abs().amax(-1)                      # (B, G)
+    agree = d.pop("agree")
+    n_agree = int(agree.sum())
+    gap_agree = gap[agree].max().item() if n_agree else float("nan")
+    share = d["differing"] / d["choices"]
+    upstream = sum(d["differing_by_layer"][x] for x in d["upstream_layers"])
+    print(f"  bf16, kernel path vs plain path (teacher-forced): "
+          f"{d['differing']} of {d['choices']} expert choices differ "
+          f"(share {share:.3e}, tol {HY_FLIP_SHARE}; by layer "
+          f"{d['differing_by_layer']}; upstream of the attention layer "
+          f"{upstream}, tol 0); positions whose choices all agree "
+          f"{n_agree} of {agree.numel()}: largest logit gap there "
+          f"{gap_agree:.4f} (tol {HY_AGREE_TOL}), over all positions "
+          f"{gap.max().item():.4f}; plain path prefill "
+          f"{BATCH * HY_PROMPT / plain_s[0]:.1f} tok/s, decode "
+          f"{BATCH * (GEN - 1) / plain_s[1]:.1f} tok/s")
+    if upstream:
+        _fail(f"{HYBRID} bf16: {upstream} expert choices differ upstream of "
+              f"the attention layer, where the paths run the same code")
+    if not share <= HY_FLIP_SHARE:
+        _fail(f"{HYBRID} bf16: {share} of the expert choices differ "
+              f"between the paths (tol {HY_FLIP_SHARE})")
+    if not (2 * n_agree >= agree.numel() and gap_agree <= HY_AGREE_TOL):
+        _fail(f"{HYBRID} bf16: logit gap {gap_agree} at the {n_agree} "
+              f"agreeing positions (tol {HY_AGREE_TOL}, at least half of "
+              f"{agree.numel()} positions)")
+    del plain
+
+    split = _prefill_split(torch, cfg, params, prompts)
+    moe, ex = split["moe_ffn"], split["_expert_ffn"]
+    mam, scan = split["mamba"], split["_mamba_ssm_chunked"]
+    att = split["self_attention"]
+    rest = split["prefill"] - moe - mam - att - split["swiglu"]
+    print(f"  prefill split (CUDA events, one prefill, {split['prefill']:.1f}"
+          f" ms): MoE FFN {moe:.1f} ms (expert FFNs {ex:.1f}, routing and "
+          f"one-hot dispatch / combine {moe - ex:.1f}); Mamba {mam:.1f} ms "
+          f"(scan {scan:.1f}, projections and conv {mam - scan:.1f}); "
+          f"attention {att:.1f} ms (its flash kernel: phase 3); dense FFN "
+          f"{split['swiglu']:.1f} ms; the rest (embed, norms, unembed) "
+          f"{rest:.1f} ms; calls {split['calls']}")
+    top = _profile_prefill(torch, cfg, params, prompts)
+    print(f"  prefill profile (torch.profiler): device busy "
+          f"{_fmt(top['device_busy_ms'])} ms over {top['device_events']} "
+          f"device events; the top {TOP_OPS} device ops:")
+    for n, ms in top["top_device_ms"].items():
+        print(f"    {ms:9.3f} ms  {n[:100]}")
+    prof = _profile_decode(torch, cfg, params, prompts, tokens,
+                           stats["decode_steady_step_s"])
+    del params, logits
+    torch.cuda.empty_cache()
+
+    f32 = _hybrid_f32_gate(torch, seed)
+    return launches, dict(
+        stats, layers=cfg.num_layers, params=n_params, weights_gb=weights_gb,
+        peak_memory_gb=peak_gb, tokens=tokens.tolist(),
+        bf16_gate={"differing_choices": d["differing"],
+                   "choices": d["choices"], "share": share,
+                   "differing_by_layer": d["differing_by_layer"],
+                   "agreeing_positions": n_agree,
+                   "positions": agree.numel(),
+                   "max_logit_gap_agreeing": gap_agree,
+                   "max_logit_gap": gap.max().item()},
+        plain_path={"prefill_s": plain_s[0], "decode_s": plain_s[1]},
+        prefill_split_ms=split, prefill_profile=top, profile=prof,
+        float32_gate=f32)
+
+
+def phase_checkpoint(torch, seed: int, card: str) -> dict:
+    """(a) Resume equivalence through train_loop on the card; (b) a
+    full-width round trip of h2o-danube-1.8b's bf16 params, bit for
+    bit."""
+    import shutil
+    from repro_torch.core.streaming_checkpoint import StreamingCheckpointer
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    try:
+        arch, B, S, steps, every = CKPT_RESUME
+        cfg = _config(arch, param_dtype="float32", compute_dtype="float32")
+        kw = dict(steps=steps, batch=B, seq=S, seed=seed, log_every=steps,
+                  device=DEVICE, use_kernels=True, ckpt_dir=root / "resume",
+                  ckpt_every=every)
+        _, straight = train_loop(cfg, **kw)
+        ck = StreamingCheckpointer(root / "resume")
+        if ck.all_steps() != [every, steps]:
+            _fail(f"checkpoints at steps {ck.all_steps()}, expected "
+                  f"{[every, steps]}")
+        # as if the run had died after step `every`'s checkpoint
+        shutil.rmtree(root / "resume" / f"step_{steps:08d}")
+        state, resumed = train_loop(cfg, resume=True, **kw)
+        want = straight["losses"][every:]
+        rel = max((_rel(a, b) for a, b in zip(resumed["losses"], want)),
+                  default=float("inf"))
+        print(f"  {arch} float32 {B}x{S}, kernel path: {steps} steps with a "
+              f"checkpoint every {every}, losses {straight['losses']}; "
+              f"resumed from step {every}: {resumed['losses']} "
+              f"({rel:.3e} relative, tol {RESUME_RTOL})")
+        if not (state.step == steps and len(resumed["losses"]) == len(want)
+                and rel <= RESUME_RTOL):
+            _fail(f"{arch}: the resumed run's losses {resumed['losses']} "
+                  f"are not the straight run's {want}")
+        out[arch] = {"losses": straight["losses"],
+                     "resumed_losses": resumed["losses"], "rel_err": rel}
+        del state
+
+        cfg = _h2o()
+        params = M.init_params(torch.Generator(DEVICE).manual_seed(seed),
+                               cfg)
+        ck = StreamingCheckpointer(root / "h2o")
+        free_gb = shutil.disk_usage(root).free / 1e9
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(0, params)
+        write_s = time.perf_counter() - t0
+        m = ck.metrics
+        t0 = time.perf_counter()
+        back = ck.restore(params)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        same = all(torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.reshape(-1).view(torch.uint8))
+                   and a.dtype == b.dtype and a.shape == b.shape
+                   for a, b in zip(tree_leaves(params), tree_leaves(back)))
+        bound = ck.buffers * ck.chunk_bytes
+        gb = m.bytes_written / 1e9
+        print(f"  {ARCH} bf16 params ({gb:.3f} GB, {m.n_leaves} leaves, "
+              f"{m.n_chunks} chunks; {free_gb:.0f} GB free before): write "
+              f"{write_s:.2f} s = {gb / write_s:.3f} GB/s, read "
+              f"{read_s:.2f} s = {gb / read_s:.3f} GB/s, bit for bit "
+              f"{same}; peak in flight {m.peak_buffer_bytes} B (bound "
+              f"{ck.buffers} x {ck.chunk_bytes} = {bound} B)")
+        if not same:
+            _fail(f"{ARCH}: restored params differ from the saved ones")
+        if not m.peak_buffer_bytes <= bound:
+            _fail(f"checkpoint: {m.peak_buffer_bytes} B in flight > {bound}")
+        out[ARCH] = {"gb": gb, "write_s": write_s, "read_s": read_s,
+                     "write_gb_per_s": gb / write_s,
+                     "read_gb_per_s": gb / read_s,
+                     "peak_buffer_bytes": m.peak_buffer_bytes,
+                     "bound_bytes": bound, "chunks": m.n_chunks}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -854,13 +1339,14 @@ def _cast(tree, dtype):
 
 
 def _teacher_forced(cfg, params, prompts, tokens, use_kernels, cache_dtype):
-    """Prefill `prompts`, then decode feeding `tokens[:, :-1]`: the logits
-    (B, GEN, Vp) float32 at each position, and (prefill s, decode s)."""
+    """Prefill `prompts` (B, P), then decode feeding `tokens[:, :-1]`
+    (tokens (B, G)): the logits (B, G, Vp) float32 at each position, and
+    (prefill s, decode s)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill, make_serve_step
-    caches = M.init_caches(cfg, BATCH, PROMPT + GEN, dtype=cache_dtype,
-                           device=DEVICE)
+    (B, P), G = prompts.shape, tokens.shape[1]
+    caches = M.init_caches(cfg, B, P + G, dtype=cache_dtype, device=DEVICE)
     prefill = make_prefill(cfg, use_kernels=use_kernels)
     step = make_serve_step(cfg, use_kernels=use_kernels)
     with torch.no_grad():
@@ -870,7 +1356,7 @@ def _teacher_forced(cfg, params, prompts, tokens, use_kernels, cache_dtype):
         out = [lg[:, -1].float()]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for t in range(1, GEN):
+        for t in range(1, G):
             _, caches, last = step(params, caches, tokens[:, t - 1:t])
             out.append(last.float())
         torch.cuda.synchronize()
@@ -894,12 +1380,19 @@ def main() -> int:
     kernels = phase_kernels(torch, args.seed)
     print("== serve")
     launches, serve_stats = phase_serve(torch, args.seed, card)
+    print("== serve-hybrid")
+    hy_launches, hybrid_stats = phase_serve_hybrid(torch, args.seed, card)
     print("== train")
     train_launches, train_stats = phase_train(torch, args.seed, card)
+    print("== checkpoint")
+    ckpt_stats = phase_checkpoint(torch, args.seed, card)
+    hy_path = f"serve {HYBRID} ({HY_LAYERS} layers)"
     by_path = {"flash_attention": {f"serve {ARCH}":
-                                   launches["flash_attention"]},
+                                   launches["flash_attention"],
+                                   hy_path: hy_launches["flash_attention"]},
                "decode_attention": {f"serve {ARCH}":
-                                    launches["decode_attention"]},
+                                    launches["decode_attention"],
+                                    hy_path: hy_launches["decode_attention"]},
                "wkv6": {}}
     for path, n in train_launches.items():
         by_path["wkv6" if RWKV in path else "flash_attention"][path] = n
@@ -910,7 +1403,8 @@ def main() -> int:
         k["launches_path"], k["launches"] = next(iter(paths.items()))
         k["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels, "card": card,
-                      "serve": serve_stats, "train": train_stats}))
+                      "serve": serve_stats, "serve_hybrid": hybrid_stats,
+                      "train": train_stats, "checkpoint": ckpt_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

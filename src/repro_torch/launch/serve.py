@@ -3,11 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lovelock-20m \
         --batch 4 --prompt-len 64 --gen 32 [--device cpu] [--no-kernels]
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --layers 8 --batch 4 --prompt-len 4096
+
+`--layers` cuts the model's depth to a whole number of its periods (one
+period of jamba-v0.1-52b, 8 of its 32 layers, fits one 80 GB card in bf16).
+
 Port of `repro.launch.serve`. Runs on the CUDA card unless `--device cpu`.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -94,10 +101,15 @@ def main():
                     help="torch device (default: cuda; 'cpu' to run there)")
     ap.add_argument("--no-kernels", action="store_true",
                     help="plain PyTorch attention instead of the kernels")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve this many layers (a multiple of the "
+                         "model's period) instead of the config's")
     args = ap.parse_args()
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     toks, stats, _ = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                            gen=args.gen, seed=args.seed,
                            use_kernels=not args.no_kernels,

@@ -3,17 +3,23 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch lovelock-20m \
         --steps 100 --batch 8 --seq 256 [--device cpu] [--no-kernels]
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lovelock-20m \
+        --steps 100 --ckpt-dir ck [--ckpt-every 50] [--resume]
+
 Port of `repro.launch.train`: storage-node data pipeline -> train step
-(AdamW) -> straggler detection. Runs on the CUDA card unless `--device
-cpu`; the kernels are on unless `--no-kernels`. The streaming checkpointer
-(`--ckpt-dir`, `--resume`: ROADMAP.md queue 1 item 5) and meshes of more
-than one device (`--data-mesh`, `--model-mesh`: item 8) are not ported
-yet and raise.
+(AdamW) -> streaming checkpoints -> straggler detection. Runs on the CUDA
+card unless `--device cpu`; the kernels are on unless `--no-kernels`. With
+`--ckpt-dir` the state is saved every `--ckpt-every` steps and at the end,
+in the reference's on-disk format; `--resume` restores the latest
+checkpoint there and goes on from its step, with that step's batch. Meshes
+of more than one device (`--data-mesh`, `--model-mesh`: ROADMAP.md queue 1
+item 8) are not ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import time
 
@@ -22,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.elastic import StragglerDetector
+from repro_torch.core.streaming_checkpoint import StreamingCheckpointer
 from repro_torch.data.pipeline import Prefetcher, StorageNodeDataset
 from repro_torch.models import model as M
 from repro_torch.optim import OptimizerConfig, adamw_init
@@ -42,21 +49,20 @@ def train_loop(cfg, *, steps, batch, seq, ckpt_dir=None, ckpt_every=50,
     """Train `steps` steps of `batch` x `seq` tokens from the synthetic
     storage-node dataset made from `seed`.
 
-    `params` default to random ones made from `seed` on the device. Returns
-    (state, info): info holds the losses, each step's seconds (`step_s`,
-    host clock around a synchronised step, the batch's copy to the device
-    included) and the wall seconds of the loop.
+    `params` default to random ones made from `seed` on the device. With
+    `ckpt_dir`, the state is saved there after every `ckpt_every`-th step
+    and at the end; with `resume` as well, the loop starts from the latest
+    checkpoint there, if any, and feeds step i the dataset's batch i, as an
+    uninterrupted run does (the reference feeds batch 0 after a resume).
+    Returns (state, info): info holds the losses of the steps run, each
+    step's seconds (`step_s`, host clock around a synchronised step, the
+    batch's copy to the device included) and the wall seconds of the loop.
     """
-    if ckpt_dir is not None or resume:
-        raise NotImplementedError(
-            "checkpoints (--ckpt-dir, --resume) are not ported yet: "
-            "ROADMAP.md queue 1 item 5 (the streaming checkpointer)")
     if data_mesh * model_mesh > 1:
         raise NotImplementedError(
             f"a {data_mesh} x {model_mesh} mesh is not ported yet: ROADMAP.md "
             f"queue 1 item 8 (sharding and meshes); the port trains on one "
             f"device")
-    del ckpt_every        # used with checkpoints only
     dev = resolve_device(device)
     opt_cfg = OptimizerConfig(lr=lr, warmup=max(10, steps // 20),
                               total_steps=steps)
@@ -64,6 +70,10 @@ def train_loop(cfg, *, steps, batch, seq, ckpt_dir=None, ckpt_every=50,
         params = M.init_params(torch.Generator(dev).manual_seed(seed), cfg,
                                tp=model_mesh)
     state = adamw_init(params, opt_cfg)
+    ckpt = StreamingCheckpointer(ckpt_dir) if ckpt_dir else None
+    if resume and ckpt and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        print(f"resumed from step {state.step}", flush=True)
     step_fn = make_train_step(cfg, opt_cfg, use_kernels=use_kernels)
     ds = StorageNodeDataset(vocab_size=cfg.vocab_size, seq_len=seq,
                             global_batch=batch, seed=seed,
@@ -74,7 +84,8 @@ def train_loop(cfg, *, steps, batch, seq, ckpt_dir=None, ckpt_every=50,
     with contextlib.ExitStack() as stack:
         logf = (stack.enter_context(open(log_path, "a"))
                 if log_path else None)
-        it = Prefetcher(iter(ds), depth=2)
+        it = Prefetcher((ds.fetch_step(i)
+                         for i in itertools.count(state.step)), depth=2)
         stack.callback(it.close)
         for batch_np in it:
             step = state.step
@@ -97,6 +108,10 @@ def train_loop(cfg, *, steps, batch, seq, ckpt_dir=None, ckpt_every=50,
                 if logf:
                     logf.write(json.dumps(rec) + "\n")
                     logf.flush()
+            if ckpt and (step + 1) % ckpt_every == 0:
+                ckpt.save(step + 1, state)
+    if ckpt:
+        ckpt.save(state.step, state)
     wall = _clock(dev) - t_start
     return state, {"losses": losses, "step_s": step_s, "wall_s": wall}
 
@@ -132,8 +147,8 @@ def main():
         resume=args.resume, log_path=args.log,
         use_kernels=not args.no_kernels, device=args.device)
     l = info["losses"]
-    print(f"done: {len(l)} steps, loss {l[0]:.3f} -> {l[-1]:.3f}, "
-          f"wall {info['wall_s']:.0f}s")
+    losses = f", loss {l[0]:.3f} -> {l[-1]:.3f}" if l else ""
+    print(f"done: {len(l)} steps{losses}, wall {info['wall_s']:.0f}s")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Decoder layers: the dense subset of `repro.models.layers` and RWKV6.
+"""Decoder layers: the dense subset of `repro.models.layers`, the MoE FFN,
+Mamba and RWKV6.
 
 Conventions
 -----------
@@ -12,7 +13,8 @@ Conventions
   returns updated copies instead.
 * `use_kernels=True` runs attention and the WKV6 recurrence through the
   CUDA kernels (their plain versions for CPU tensors); `False` selects the
-  reference's plain paths.
+  reference's plain paths. The MoE dispatch and the Mamba scan are plain
+  PyTorch on both, as they are plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -224,7 +226,7 @@ def decode_attention(p, x, cfg, *, cache, cache_index: int, use_rope=True,
 
 
 # ---------------------------------------------------------------------------
-# FFN: SwiGLU dense
+# FFN: SwiGLU dense + token-choice top-k MoE (GShard-style einsum dispatch)
 # ---------------------------------------------------------------------------
 
 
@@ -232,6 +234,192 @@ def swiglu(p, x):
     g = _einsum("bsd,df->bsf", x, p["w_gate"])
     u = _einsum("bsd,df->bsf", x, p["w_up"])
     return _einsum("bsf,fd->bsd", F.silu(g) * u, p["w_down"])
+
+
+def _moe_route(p, xt, moe_cfg):
+    """Shared routing: returns (gate_vals, expert_ids, pos, C, probs).
+
+    Router logits in float32 (a bf16 `xt` times the float32 router
+    promotes); top-k of the softmax, renormalised; each (token, k)'s
+    position within its expert counted in (k-major, token) order; gates of
+    positions past the capacity C are 0.
+    """
+    E, K = moe_cfg.num_experts, moe_cfg.top_k
+    N = xt.shape[0]
+    logits = _einsum("nd,de->ne", xt, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)          # (N,K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    C = max(1, int(moe_cfg.capacity_factor * K * N / E))
+    onehot = F.one_hot(expert_ids, E)                             # (N,K,E)
+    flat = onehot.transpose(0, 1).reshape(K * N, E)
+    pos_flat = torch.cumsum(flat, dim=0) - flat                   # (K*N,E)
+    pos = (pos_flat.reshape(K, N, E).transpose(0, 1) * onehot).sum(-1)
+    keep = (pos < C).to(gate_vals.dtype)
+    return gate_vals * keep, expert_ids, pos, C, probs
+
+
+def _moe_aux(expert_ids, probs, moe_cfg):
+    """Load-balance loss on the first choice only."""
+    E = moe_cfg.num_experts
+    f = F.one_hot(expert_ids[:, 0], E).float().mean(0)
+    pm = probs.mean(0)
+    return E * torch.sum(f * pm) * moe_cfg.aux_loss_weight
+
+
+def _expert_ffn(p, xe):
+    g = _einsum("ecd,edf->ecf", xe, p["w_gate"])
+    u = _einsum("ecd,edf->ecf", xe, p["w_up"])
+    return _einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"])
+
+
+def moe_ffn(p, x, moe_cfg):
+    """Token-choice top-k MoE.
+
+    p: {router (D,E) float32, w_gate/w_up (E,D,F), w_down (E,F,D),
+        [shared: swiglu params]}
+    Returns (out, aux_loss). Dispatch per moe_cfg.dispatch:
+      'einsum'  -- GShard one-hot einsums: 2*N*E*C*D dispatch FLOP;
+      'scatter' -- index_add_ into the expert slots, a gather back.
+    Tokens past an expert's capacity are dropped (their gate is 0).
+    """
+    B, S, D = x.shape
+    E, K = moe_cfg.num_experts, moe_cfg.top_k
+    N = B * S
+    xt = x.reshape(N, D)
+    gate_vals, expert_ids, pos, C, probs = _moe_route(p, xt, moe_cfg)
+
+    if moe_cfg.dispatch == "scatter":
+        slot = expert_ids * C + pos                               # (N,K)
+        slot = torch.where(gate_vals > 0, slot, E * C)           # overflow bin
+        xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+        xe.index_add_(0, slot.reshape(-1),
+                      xt[:, None, :].expand(N, K, D).reshape(-1, D))
+        ye = _expert_ffn(p, xe[:E * C].reshape(E, C, D))
+        back = ye.reshape(E * C, D)[
+            torch.clamp(slot, 0, E * C - 1).reshape(-1)].reshape(N, K, D)
+        out = torch.sum(back * gate_vals[..., None].to(back.dtype), dim=1)
+    elif moe_cfg.dispatch == "einsum":
+        # dispatch / combine tensors (N,E,C) built one k at a time. The
+        # reference's one_hot(pos, C) is a zero row for pos >= C, which is
+        # how overflow tokens drop out: the comparison with arange(C) gives
+        # the same zero row (F.one_hot would raise instead)
+        slots = torch.arange(C, device=xt.device)
+        xe = torch.zeros((E, C, D), dtype=xt.dtype, device=xt.device)
+        combine = torch.zeros((N, E, C), dtype=torch.float32,
+                              device=xt.device)
+        for k in range(K):
+            d_k = (F.one_hot(expert_ids[:, k], E).to(xt.dtype)[:, :, None]
+                   * (pos[:, k, None] == slots).to(xt.dtype)[:, None, :])
+            d_k = d_k * (gate_vals[:, k] > 0)[:, None, None].to(xt.dtype)
+            xe = xe + _einsum("nec,nd->ecd", d_k, xt)
+            combine = combine + (d_k.float()
+                                 * gate_vals[:, k, None, None])
+            del d_k
+        ye = _expert_ffn(p, xe)
+        out = _einsum("nec,ecd->nd", combine.to(ye.dtype), ye)
+    else:
+        raise ValueError(f"unknown MoE dispatch {moe_cfg.dispatch!r}")
+
+    out = out.reshape(B, S, D)
+    if "shared" in p:
+        out = out + swiglu(p["shared"], x)
+    return out, _moe_aux(expert_ids, probs, moe_cfg)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM): chunked scan, decode single-step
+# ---------------------------------------------------------------------------
+
+MAMBA_CHUNK = 256
+
+
+def _scan_pairs(a, b):
+    """Inclusive scan along dim 1 of the pairs (a_t, b_t) under the
+    reference's combine (a1, b1), (a2, b2) -> (a2 a1, a2 b1 + b2): the
+    log-step (Hillis-Steele) doubling, ceil(log2 c) vectorised steps in
+    place of `lax.associative_scan`'s tree (the same function, rounded in
+    another order)."""
+    c, s = a.shape[1], 1
+    while s < c:
+        b = torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], dim=1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+        s *= 2
+    return a, b
+
+
+def _mamba_ssm_chunked(dt, A, Bm, Cm, xin, h0):
+    """h_t = exp(dt_t*A) h_{t-1} + dt_t*B_t*x_t ; y_t = C_t . h_t.
+
+    dt,xin: (B,S,I)  Bm,Cm: (B,S,Nst)  A: (I,Nst)  h0: (B,I,Nst)
+    Returns y (B,S,I), h_final. Chunks of c = S // max(1, S // 256) tokens
+    (S must be a multiple of their count, as the reference's reshape
+    needs); dA and dBx, (B,c,I,Nst) each, are formed a chunk at a time
+    where the reference forms them for all of S at once.
+    """
+    Bsz, S, I = xin.shape
+    nchunk = max(1, S // MAMBA_CHUNK)
+    c = S // nchunk
+    if nchunk * c != S:
+        raise ValueError(f"sequence length {S} is not a multiple of its "
+                         f"{nchunk} chunks")
+    h, ys = h0, []
+    for i in range(nchunk):
+        sl = slice(i * c, (i + 1) * c)
+        dA = torch.exp(dt[:, sl, :, None] * A)                 # (B,c,I,N)
+        dBx = (dt[:, sl] * xin[:, sl])[..., None] * Bm[:, sl, None, :]
+        aa, bb = _scan_pairs(dA, dBx)
+        del dA, dBx
+        h_all = aa * h[:, None] + bb                           # (B,c,I,N)
+        del aa, bb
+        ys.append(torch.einsum("bcin,bcn->bci", h_all, Cm[:, sl]))
+        h = h_all[:, -1].clone()
+        del h_all
+    return torch.cat(ys, dim=1), h
+
+
+def mamba(p, x, cfg, *, state=None):
+    """Mamba-1 selective SSM block.
+
+    p: {in_proj (D, 2I), conv_w (dc, I), conv_b (I,), x_proj (I, R+2N),
+        dt_proj (R, I), dt_bias (I,), A_log (I,N), Dskip (I,), out_proj (I,D)}
+    state: {conv: (B, dc-1, I), ssm: (B,I,N) float32} for prefill into a
+    cache and decode. Returns (out, new_state). The SSM runs in float32,
+    the conv, skip and gate in the model's dtype. `F.softplus` switches to
+    the identity above 20 where `jax.nn.softplus` does not; the two agree
+    to float32 rounding there.
+    """
+    m = cfg.mamba
+    B, S, D = x.shape
+    I = m.expand * D
+    xz = _einsum("bsd,de->bse", x, p["in_proj"])
+    xin, z = xz[..., :I], xz[..., I:]
+    # depthwise causal conv over seq (dc taps), in the reference's order
+    dc = m.d_conv
+    if state is not None:
+        ctx = torch.cat([state["conv"], xin], dim=1)      # (B,dc-1+S,I)
+    else:
+        ctx = F.pad(xin, (0, 0, dc - 1, 0))
+    conv = sum(ctx[:, i:i + S] * p["conv_w"][i] for i in range(dc))
+    xin_c = F.silu(conv + p["conv_b"])
+    new_conv = ctx[:, -(dc - 1):] if dc > 1 else ctx[:, :0]
+
+    R = p["dt_proj"].shape[0]
+    N = m.d_state
+    dbc = _einsum("bsi,ir->bsr", xin_c, p["x_proj"])
+    dt_r, Bm, Cm = dbc[..., :R], dbc[..., R:R + N], dbc[..., R + N:]
+    dt = F.softplus(_einsum("bsr,ri->bsi", dt_r, p["dt_proj"])
+                    + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    h0 = state["ssm"] if state is not None else torch.zeros(
+        (B, I, N), dtype=torch.float32, device=x.device)
+    y, h_last = _mamba_ssm_chunked(dt.float(), A, Bm.float(), Cm.float(),
+                                   xin_c.float(), h0)
+    y = y.to(x.dtype) + xin_c * p["Dskip"]
+    y = y * F.silu(z)
+    out = _einsum("bsi,id->bsd", y, p["out_proj"])
+    return out, {"conv": new_conv, "ssm": h_last}
 
 
 # ---------------------------------------------------------------------------

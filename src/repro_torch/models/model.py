@@ -1,9 +1,10 @@
-"""Model assembly for dense decoders and RWKV6: init / forward / decode.
+"""Model assembly for the decoder families: init / forward / decode.
 
-Port of the dense and RWKV6 subset of `repro.models.model`. Parameters
-keep the reference's tree: per-position-in-period layer dicts whose leaves
-carry a leading period axis. The reference's `lax.scan` over periods is a
-Python loop over that axis here. Caches (KV rings, RWKV shift and WKV
+Port of `repro.models.model` for dense decoders, MoE, the Mamba +
+attention hybrid (Jamba) and RWKV6. Parameters keep the reference's tree:
+per-position-in-period layer dicts whose leaves carry a leading period
+axis. The reference's `lax.scan` over periods is a Python loop over that
+axis here. Caches (KV rings, Mamba conv and SSM states, RWKV shift and WKV
 states) are updated in place, so the reference's two `cache_in_carry`
 decode branches (which compute the same function) are one index write.
 """
@@ -17,26 +18,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-# what ROADMAP.md queue 1 item ports each family the port does not run yet
+# the ROADMAP.md queue 1 item that ports each family the port does not
+# run yet
 _LATER = {
-    "moe": "item 7 (MoE: moe_ffn)",
     "vlm": "item 7 (VLM and whisper: cross_attention)",
     "audio": "item 7 (VLM and whisper: the whisper encoder)",
-    "hybrid": "item 7 (Mamba), with MoE",
 }
 
 
 def _require_supported(cfg: ModelConfig) -> None:
-    """Raise unless `cfg` is a dense decoder or RWKV6."""
-    if cfg.rwkv:
-        return
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.attn_every > 1
-            or cfg.cross_attn_every or cfg.encoder_layers):
+    """Raise for the cross-attention families (VLM, whisper)."""
+    if cfg.cross_attn_every or cfg.encoder_layers:
         later = _LATER.get(cfg.family, "item 7")
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): repro_torch runs dense decoders "
-            f"and RWKV6 only so far; ROADMAP.md queue 1 {later} ports this "
-            f"family")
+            f"{cfg.name} ({cfg.family}): repro_torch runs the dense, MoE, "
+            f"hybrid (Mamba) and RWKV6 decoders so far; ROADMAP.md queue 1 "
+            f"{later} ports this family")
 
 
 # ---------------------------------------------------------------------------
@@ -46,15 +43,32 @@ def _require_supported(cfg: ModelConfig) -> None:
 
 def period_of(cfg: ModelConfig) -> int:
     _require_supported(cfg)
+    if cfg.rwkv:
+        return 1
+    if cfg.attn_every > 1:
+        return cfg.attn_every
+    if cfg.moe is not None and cfg.moe_every > 1:
+        return cfg.moe_every
     return 1
 
 
 def block_specs(cfg: ModelConfig) -> list[dict]:
-    """One spec per position within a period."""
-    _require_supported(cfg)
-    if cfg.rwkv:
-        return [{"kind": "rwkv", "ffn": "rwkv"}]
-    return [{"kind": "attn", "ffn": "dense"}]
+    """One spec per position within a period: the mixer (attn, mamba,
+    rwkv) and the FFN (dense, moe, rwkv)."""
+    P = period_of(cfg)
+    specs = []
+    for pos in range(P):
+        if cfg.rwkv:
+            specs.append({"kind": "rwkv", "ffn": "rwkv"})
+            continue
+        kind = "mamba" if cfg.attn_every > 1 and pos != P - 1 else "attn"
+        if cfg.moe is not None and (pos % cfg.moe_every
+                                    == cfg.moe_every - 1):
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        specs.append({"kind": kind, "ffn": ffn})
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -117,13 +131,50 @@ def _attn_params(gen, cfg: ModelConfig, tp: int):
     return p
 
 
-def _ffn_params(gen, cfg: ModelConfig):
-    D, Fd = cfg.d_model, cfg.d_ff
+def _ffn_params(gen, cfg: ModelConfig, d_ff=None):
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     dt = _dtype(cfg.param_dtype)
     return {"w_gate": _dense(gen, (D, Fd), dt),
             "w_up": _dense(gen, (D, Fd), dt),
             "w_down": _dense(gen, (Fd, D), dt,
                              0.02 / math.sqrt(2 * cfg.num_layers))}
+
+
+def _moe_params(gen, cfg: ModelConfig):
+    m = cfg.moe
+    D, Fd, E = cfg.d_model, m.d_ff, m.num_experts
+    dt = _dtype(cfg.param_dtype)
+    p = {"router": _dense(gen, (D, E), torch.float32),
+         "w_gate": _dense(gen, (E, D, Fd), dt),
+         "w_up": _dense(gen, (E, D, Fd), dt),
+         "w_down": _dense(gen, (E, Fd, D), dt,
+                          0.02 / math.sqrt(2 * cfg.num_layers))}
+    if m.num_shared_experts:
+        p["shared"] = _ffn_params(gen, cfg, d_ff=Fd * m.num_shared_experts)
+    return p
+
+
+def _mamba_params(gen, cfg: ModelConfig):
+    m = cfg.mamba
+    D = cfg.d_model
+    I = m.expand * D
+    R = max(1, D // 16)
+    N = m.d_state
+    dt = _dtype(cfg.param_dtype)
+    A = torch.arange(1, N + 1, dtype=torch.float32,
+                     device=gen.device).expand(I, N)
+    return {
+        "in_proj": _dense(gen, (D, 2 * I), dt),
+        "conv_w": _dense(gen, (m.d_conv, I), dt, 0.1),
+        "conv_b": _zeros(gen, (I,), dt),
+        "x_proj": _dense(gen, (I, R + 2 * N), dt),
+        "dt_proj": _dense(gen, (R, I), dt),
+        "dt_bias": torch.full((I,), -2.0, dtype=dt, device=gen.device),
+        "A_log": torch.log(A),
+        "Dskip": torch.ones((I,), dtype=dt, device=gen.device),
+        "out_proj": _dense(gen, (I, D), dt,
+                           0.02 / math.sqrt(2 * cfg.num_layers)),
+    }
 
 
 def _rwkv_params(gen, cfg: ModelConfig):
@@ -162,14 +213,24 @@ def _block_params(gen, cfg: ModelConfig, spec: dict, tp: int):
          "ln2": _norm_init(gen, cfg.d_model)}
     if spec["kind"] == "rwkv":
         return {**p, **_rwkv_params(gen, cfg)}
-    return {**p, "attn": _attn_params(gen, cfg, tp),
-            "ffn": _ffn_params(gen, cfg)}
+    if spec["kind"] == "mamba":
+        p["mamba"] = _mamba_params(gen, cfg)
+    else:
+        p["attn"] = _attn_params(gen, cfg, tp)
+    if spec["ffn"] == "moe":
+        p["moe"] = _moe_params(gen, cfg)
+    else:
+        p["ffn"] = _ffn_params(gen, cfg)
+    return p
 
 
 def _stack(trees: list):
-    """Stack a list of equal-structure dicts of tensors leafwise."""
+    """Stack a list of equal-structure dicts of tensors leafwise (one
+    period: a view, so a full-width layer is not held twice)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if len(trees) == 1:
+        return trees[0].unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -178,6 +239,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, tp: int = 1) -> dict:
     P = period_of(cfg)
     specs = block_specs(cfg)
     n_periods = cfg.num_layers // P
+    if n_periods * P != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a "
+                         f"whole number of {P}-layer periods")
     Vp = cfg.padded_vocab()
     dt = _dtype(cfg.param_dtype)
     embed = _zeros(gen, (Vp, cfg.d_model), dt)
@@ -208,28 +272,37 @@ def _at(tree, i):
 
 def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
                  mode="train", use_kernels=True):
-    """One block. Returns (x, new_cache)."""
+    """One block. Returns (x, aux): the block's MoE load-balance loss, or
+    None for a block without one (the reference adds a 0 there). New cache
+    entries are written into `cache` in place."""
+    aux = None
     if spec["kind"] == "rwkv":
-        return _apply_rwkv_block(p, x, cfg, cache, use_kernels)
-    new_cache = cache
+        return _apply_rwkv_block(p, x, cfg, cache, use_kernels), aux
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "decode":
-        o, kvc = L.decode_attention(p["attn"], h, cfg, cache=cache["kv"],
-                                    cache_index=cache_index,
-                                    use_kernels=use_kernels)
-        new_cache = {**cache, "kv": kvc}
+    if spec["kind"] == "mamba":
+        st = cache["mamba"] if cache is not None else None
+        o, mst = L.mamba(p["mamba"], h, cfg, state=st)
+        if cache is not None:
+            for name, new in mst.items():
+                cache["mamba"][name].copy_(new)
+    elif mode == "decode":
+        o, _ = L.decode_attention(p["attn"], h, cfg, cache=cache["kv"],
+                                  cache_index=cache_index,
+                                  use_kernels=use_kernels)
     else:
         kvc_in = cache["kv"] if cache is not None else None
-        o, kvc = L.self_attention(p["attn"], h, cfg,
-                                  causal=spec.get("causal", cfg.causal),
-                                  kv_cache=kvc_in,
-                                  cache_index=0 if kvc_in is not None
-                                  else None, use_kernels=use_kernels)
-        if cache is not None:
-            new_cache = {**cache, "kv": kvc}
+        o, _ = L.self_attention(p["attn"], h, cfg,
+                                causal=spec.get("causal", cfg.causal),
+                                kv_cache=kvc_in,
+                                cache_index=0 if kvc_in is not None
+                                else None, use_kernels=use_kernels)
     x = x + o
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["ffn"], h), new_cache
+    if spec["ffn"] == "moe":
+        o, aux = L.moe_ffn(p["moe"], h, cfg.moe)
+    else:
+        o = L.swiglu(p["ffn"], h)
+    return x + o, aux
 
 
 def _apply_rwkv_block(p, x, cfg, cache, use_kernels):
@@ -249,7 +322,7 @@ def _apply_rwkv_block(p, x, cfg, cache, use_kernels):
         for name, new in tm_state.items():
             cache["tm"][name].copy_(new)
         cache["cm"].copy_(cm_state)
-    return x, cache
+    return x
 
 
 def _embed(params, cfg, tokens):
@@ -262,44 +335,48 @@ def _unembed(params, cfg, x):
 
 
 def _run_layers(params, cfg, x, caches, *, remat=False, **kw):
+    """The periods in order. Returns (x, aux): aux summed over the blocks
+    in the reference's order."""
     specs = block_specs(cfg)
 
-    def period(x, li):
+    def period(x, aux, li):
         for i, spec in enumerate(specs):
             cc = None if caches is None else _at(caches["layers"][i], li)
-            x, _ = _apply_block(_at(params["layers"][i], li), spec, x, cfg,
+            x, a = _apply_block(_at(params["layers"][i], li), spec, x, cfg,
                                 cache=cc, **kw)
-        return x
+            if a is not None:
+                aux = aux + a
+        return x, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.num_layers // len(specs)):
         if remat:
             # The reference saves the periods' matmul outputs
             # (dots_with_no_batch_dims_saveable); here a period keeps only
             # its input and recomputes the rest in the backward. Same
             # numbers, another memory / recompute trade.
-            x = checkpoint(period, x, li, use_reentrant=False)
+            x, aux = checkpoint(period, x, aux, li, use_reentrant=False)
         else:
-            x = period(x, li)
-    return x
+            x, aux = period(x, aux, li)
+    return x, aux
 
 
 def forward(params, cfg: ModelConfig, tokens, *, caches=None,
             use_kernels=True, remat=True):
     """Full-sequence forward (train, or prefill when caches are given).
 
-    Returns (logits, aux_loss, new_caches); aux_loss is 0 for the dense
-    and RWKV6 models. `remat` recomputes each period in the backward; it
-    applies only when autograd records and no caches are given. The caches'
-    tensors are written in place; new_caches shares them and carries the
-    advanced index.
+    Returns (logits, aux_loss, new_caches); aux_loss is the MoE blocks'
+    load-balance loss summed over the blocks (0 without MoE). `remat`
+    recomputes each period in the backward; it applies only when autograd
+    records and no caches are given. The caches' tensors are written in
+    place; new_caches shares them and carries the advanced index.
     """
     x = _embed(params, cfg, tokens)
-    x = _run_layers(params, cfg, x, caches, mode="train",
-                    use_kernels=use_kernels,
-                    remat=remat and caches is None
-                    and torch.is_grad_enabled())
+    x, aux = _run_layers(params, cfg, x, caches, mode="train",
+                         use_kernels=use_kernels,
+                         remat=remat and caches is None
+                         and torch.is_grad_enabled())
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     out_caches = None
     if caches is not None:
         out_caches = {**caches, "index": caches["index"] + tokens.shape[1]}
@@ -315,8 +392,8 @@ def decode_step(params, cfg: ModelConfig, token, caches, *,
     """
     index = caches["index"]
     x = _embed(params, cfg, token)
-    x = _run_layers(params, cfg, x, caches, cache_index=index,
-                    mode="decode", use_kernels=use_kernels)
+    x, _ = _run_layers(params, cfg, x, caches, cache_index=index,
+                       mode="decode", use_kernels=use_kernels)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), {**caches, "index": index + 1}
 
@@ -328,9 +405,10 @@ def decode_step(params, cfg: ModelConfig, token, caches, *,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                 dtype=torch.bfloat16, *, device) -> dict:
-    """Zeroed caches: KV rings of W = min(max_len, sliding window) slots,
-    or RWKV6's shift states (in `dtype`) and WKV states (float32). `index`
-    is an int (the next position to write)."""
+    """Zeroed caches: KV rings of W = min(max_len, sliding window) slots;
+    Mamba conv states (in `dtype`) and SSM states (float32); RWKV6's shift
+    states (in `dtype`) and WKV states (float32). `index` is an int (the
+    next position to write)."""
     specs = block_specs(cfg)
     n_periods = cfg.num_layers // len(specs)
     hd = cfg.head_dim_()
@@ -340,11 +418,16 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                            device=device)
 
     def one(spec):
+        D = cfg.d_model
         if spec["kind"] == "rwkv":
-            D = cfg.d_model
             return {"tm": {"shift": zeros(1, D),
                            "wkv": zeros(D // hd, hd, hd, dt=torch.float32)},
                     "cm": zeros(1, D)}
+        if spec["kind"] == "mamba":
+            m = cfg.mamba
+            I = m.expand * D
+            return {"mamba": {"conv": zeros(m.d_conv - 1, I),
+                              "ssm": zeros(I, m.d_state, dt=torch.float32)}}
         _, Kp, _ = cfg.padded_heads(tp)
         W = min(max_len, cfg.sliding_window or max_len)
         return {"kv": {"k": zeros(W, Kp, hd), "v": zeros(W, Kp, hd)}}

@@ -260,3 +260,150 @@ def test_wkv6_rejects_what_it_does_not_take(cuda_device):
         wops.wkv6(x.transpose(1, 2), x, x, x, u)
     with pytest.raises(TypeError, match="float32"):
         wops.wkv6(x.bfloat16(), x, x, x, u)
+
+
+# ---------------------------------------------------------------------------
+# MoE, Mamba, the hybrid model and the checkpointer: the same code on the
+# card and on the CPU (float32; TF32 is off for matmuls by default)
+# ---------------------------------------------------------------------------
+
+
+def _cfg(arch, dtype="float32", **replace):
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    return dataclasses.replace(smoke_variant(get_config(arch)),
+                               param_dtype=dtype, compute_dtype=dtype,
+                               **replace)
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_ffn_on_card(cuda_device, dispatch):
+    """jamba's smoke MoE over 64 tokens with its router pulled toward one
+    expert (capacity overflows): the card's routes equal the CPU's, and
+    its outputs agree to 1e-5."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = _cfg("jamba-v0.1-52b")
+    moe = dataclasses.replace(cfg.moe, dispatch=dispatch)
+    p = M.init_params(torch.Generator().manual_seed(0), cfg)["layers"][1]
+    p = {k: v[0] for k, v in p["moe"].items()}
+    p["router"][:, 0] += 0.05            # x's common offset favours it
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 32, cfg.d_model)).astype(np.float32) + 1.0)
+    want, want_aux = L.moe_ffn(p, x, moe)
+    got, aux = L.moe_ffn(_on(p, cuda_device), x.to(cuda_device), moe)
+    r_cpu = L._moe_route(p, x.reshape(64, -1), moe)
+    r_gpu = L._moe_route(_on(p, cuda_device), x.reshape(64, -1).to(
+        cuda_device), moe)
+    assert (r_cpu[2] >= r_cpu[3]).any()           # some overflow
+    for a, b in zip(r_gpu[1:3], r_cpu[1:3]):
+        np.testing.assert_array_equal(to_np(a), to_np(b))
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-5, rtol=0)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
+
+
+@pytest.mark.parametrize("S", [1, 300, 512])
+def test_mamba_on_card(cuda_device, S):
+    """jamba's smoke Mamba block from a nonzero state, S tokens: output and
+    new state on the card against the CPU's to 1e-5."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = _cfg("jamba-v0.1-52b")
+    p = {k: v[0] for k, v in M.init_params(
+        torch.Generator().manual_seed(1), cfg)["layers"][0]["mamba"].items()}
+    rng = np.random.default_rng(S)
+    I = 2 * cfg.d_model
+    x = torch.from_numpy(rng.standard_normal((2, S, cfg.d_model)).astype(
+        np.float32))
+    st = {"conv": torch.from_numpy(rng.standard_normal((2, 3, I)).astype(
+              np.float32)),
+          "ssm": torch.from_numpy(rng.standard_normal((2, I, 16)).astype(
+              np.float32))}
+    want, want_st = L.mamba(p, x, cfg, state=st)
+    got, got_st = L.mamba(_on(p, cuda_device), x.to(cuda_device), cfg,
+                          state=_on(st, cuda_device))
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-5, rtol=0)
+    for n in ("conv", "ssm"):
+        np.testing.assert_allclose(to_np(got_st[n]), to_np(want_st[n]),
+                                   atol=1e-5, rtol=0)
+
+
+def test_hybrid_model_on_card(cuda_device):
+    """jamba smoke in float32 (heads of 32, a width the kernels are built
+    for) through the kernels on the card: prefill of 10 tokens and 4
+    decode steps, logits against the CPU's plain path to 1e-4, and one
+    flash plus four decode launches."""
+    from repro_torch.models import model as M
+    cfg = _cfg("jamba-v0.1-52b", head_dim=32)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 14)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pp = _on(params, dev)
+        caches = M.init_caches(cfg, 2, 14, dtype=torch.float32, device=dev)
+        fl, dl = fops.flash_attention.launches, dops.decode_attention.launches
+        lg, _, caches = M.forward(pp, cfg, toks[:, :10].to(dev),
+                                  caches=caches)
+        steps = [lg[:, -1]]
+        for t in range(10, 14):
+            lg, caches = M.decode_step(pp, cfg, toks[:, t:t + 1].to(dev),
+                                       caches)
+            steps.append(lg[:, 0])
+        out[str(dev)] = torch.stack(steps, 1)
+        launched = (fops.flash_attention.launches - fl,
+                    dops.decode_attention.launches - dl)
+        assert launched == ((0, 0) if dev == "cpu" else (1, 4))
+    np.testing.assert_allclose(to_np(out[str(cuda_device)]),
+                               to_np(out["cpu"]), atol=1e-4, rtol=0)
+
+
+def test_checkpoint_roundtrip_from_card(cuda_device, tmp_path):
+    """A TrainState on the card (bf16 params, float32 and int8 moments)
+    saved in small chunks and restored onto the card and onto the CPU:
+    every leaf equal bit for bit, in flight never more than `buffers`
+    chunks."""
+    import json
+    from repro_torch.core.streaming_checkpoint import (
+        StreamingCheckpointer, _leaf_paths)
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.tree import tree_map
+    cfg = _cfg("qwen3-32b", "bfloat16")
+    params = M.init_params(torch.Generator(cuda_device).manual_seed(0), cfg)
+
+    def raw(t):
+        if isinstance(t, int):
+            return t
+        return t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy() \
+            .tobytes()
+    for sd in ("float32", "int8"):
+        state = adamw_init(params, OptimizerConfig(state_dtype=sd))
+        state = state._replace(step=3, m=tree_map(
+            lambda t: t + 0.5 if t.is_floating_point() else t + 1, state.m))
+        ck = StreamingCheckpointer(tmp_path / sd, chunk_bytes=4096,
+                                   buffers=2)
+        d = ck.save(3, state)
+        chunks = [c["nbytes"] for m in json.loads(
+            (d / "manifest.json").read_text())["leaves"].values()
+            for c in m["chunks"]]
+        assert ck.metrics.peak_buffer_bytes <= 2 * max(chunks)
+        for dev in (cuda_device, torch.device("cpu")):
+            like = type(state)(0, *(None if t is None else tree_map(
+                lambda x: torch.zeros_like(x, device=dev), t)
+                for t in state[1:]))
+            rest = ck.restore(like)
+            for (p, a), (_, b) in zip(_leaf_paths(state),
+                                      _leaf_paths(rest)):
+                if isinstance(b, torch.Tensor):
+                    assert b.device.type == dev.type, p
+                assert raw(a) == raw(b), p

@@ -192,8 +192,7 @@ def test_init_params_matches_reference_layout(arch, smoke, over, tp, f32):
             assert abs(b.std() / a.std() - 1) < 0.05, path
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b",
-                                  "kimi-k2-1t-a32b", "whisper-large-v3",
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
                                   "llama-3.2-vision-90b"])
 def test_other_families_name_their_roadmap_item(arch):
     _, tc = cfg_pair(arch, smoke=True)

@@ -86,6 +86,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+# the modules of the MoE / Mamba / checkpoint slice among them
+assert {{"repro_torch.core.streaming_checkpoint", "repro_torch.models.layers",
+         "repro_torch.models.model", "repro_torch.launch.train"}} <= set(names)
+from repro_torch.models.layers import moe_ffn, mamba, _mamba_ssm_chunked
+from repro_torch.core.streaming_checkpoint import StreamingCheckpointer
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 assert not any(m.startswith(("jax.", "repro.")) for m in sys.modules)
 print(len(names))
@@ -93,4 +98,4 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25     # the walk saw the package
+    assert int(res.stdout.split()[-1]) >= 26     # the walk saw the package

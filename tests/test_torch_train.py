@@ -339,7 +339,6 @@ def test_train_loop_matches_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"ckpt_dir": "ck"}, "item 5"), ({"resume": True}, "item 5"),
     ({"data_mesh": 2}, "item 8"), ({"model_mesh": 2}, "item 8")])
 def test_train_loop_names_what_is_not_ported(kw, item):
     _, tc = cfg_pair("lovelock-20m", smoke=True)
