@@ -27,7 +27,12 @@ order; any failure ends the run with a non-zero exit and no result line:
               the kernels' and library calls' device-only time with
               torch.profiler; flash and decode attention also at the
               shapes jamba-v0.1-52b's serve run gives them (d = 128,
-              G = 4, causal with no window; a 4,128-slot cache);
+              G = 4, causal with no window; a 4,128-slot cache), at
+              whisper-large-v3's (encoder flash non-causal over 1500
+              frames, G = 1, d = 64; decode over 256 slots) and at
+              llama-3.2-vision-90b's (flash G = 8, d = 128, causal over
+              4096; decode over 4,128 slots, also with a float32 q, the
+              route its float32 gate takes);
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -61,7 +66,25 @@ order; any failure ends the run with a non-zero exit and no result line:
               the bf16 weights freed, the float32 gate: batch 1, prompt
               1024, 8 decode steps through both paths, logits within 1e-4
               at every position and identical expert choices;
-6. train   -- (a) lovelock-20m at full size in float32: 3 train steps
+6. serve-xattn -- (a) whisper-large-v3 whole (32 encoder and 32
+              decoder layers, random bf16 weights from --seed): batch 4,
+              1500 random N(0,1) frames, prompt 224, 32 tokens through the
+              kernels (64 flash and 992 decode launches; the encoder's
+              time by CUDA events); the same tokens teacher-forced
+              through the plain path in bf16 and through both paths in
+              float32: phase 4's gates and limits (float32 within 1e-4
+              at every position; the bf16 excess and RMS ratio);
+              liveness: zeroed frames move the float32 logits by at least
+              LIVE_MIN. (b) llama-3.2-vision-90b at full width, one
+              period (5 of 100 layers), the cross-attention gate at
+              XA_GATE: batch 4, 1601 random N(0,1) image embeddings,
+              prompt 4096, 32 tokens (4 flash and 124 decode launches);
+              then at batch 1, prompt 1024, 8 decode steps: phase 4's
+              bf16 excess gate, and, with the bf16 weights freed, the float32
+              gate and liveness (gate 0 against XA_GATE). For both: the
+              prefill by layer function, its top device ops and the
+              decode step's idle share;
+7. train   -- (a) lovelock-20m at full size in float32: 3 train steps
               from the same weights and batches through the kernel path
               and the plain path; losses within 1e-5 relative, the flash
               kernel launched once per layer per step and once more in the
@@ -80,7 +103,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               tenth of the lr: no loss of the latter may exceed the
               initial weights' loss on the same batch by more than
               LOW_LR_RTOL;
-7. checkpoint -- (a) lovelock-20m in float32 through the kernel path:
+8. checkpoint -- (a) lovelock-20m in float32 through the kernel path:
               4 steps of `train_loop` with a checkpoint every 2, the last
               checkpoint removed, then a fresh `train_loop(resume=True)`
               runs steps 3-4: losses within RESUME_RTOL of the straight
@@ -88,7 +111,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               by the streaming checkpointer under build/ and read back
               onto the card bit for bit, with write and read GB/s and at
               most `buffers` x `chunk` bytes in flight; then deleted;
-8. result  -- print the kernels' JSON line, then the device line.
+9. result  -- print the kernels' JSON line, then the device line.
 """
 from __future__ import annotations
 
@@ -147,6 +170,25 @@ HY_F32 = (1, 1024, 8)
 HY_FLIP_SHARE = 2e-3       # read: 2.120e-04 (28 of 132,064)
 HY_AGREE_TOL = 0.1         # read: 0.0312 (128 of 128 positions agreeing)
 TOP_OPS = 12               # device ops of the prefill listed
+# the cross-attention serve runs (phase serve-xattn): whisper-large-v3
+# whole (32 encoder and 32 decoder layers, 2.02 B parameters, 4.04 GB in
+# bf16), batch BATCH, its 1500 audio frames random N(0,1), prompt 224 (half
+# of its 448-token text context), GEN tokens; llama-3.2-vision-90b at full
+# width, one period (5 of 100 layers: 4 self-attention, 1 gated
+# cross-attention; 6.38 B parameters, 12.76 GB in bf16; all 100 layers do
+# not fit one 80 GB card), prompt 4096, its 1601 image embeddings random
+# N(0,1), the cross-attention gate set to XA_GATE (it starts at 0, where
+# tanh(0) = 0 would leave the layer dead)
+WHISPER, WH_PROMPT = "whisper-large-v3", 224
+VLM, VLM_LAYERS, VLM_PROMPT = "llama-3.2-vision-90b", 5, 4096
+XA_GATE = 1.0
+# the VLM's gates: batch 1, prompt 1024, 8 decode steps (the plain path's
+# float32 self-attention scores at 4 x 4096 would need ~34 GB more)
+VLM_GATES = (1, 1024, 8)
+# liveness of the cross path: zeroed frames (whisper) or a zero gate (the
+# VLM) must move the float32 logits by at least this, 100 times the
+# float32 gate's tolerance
+LIVE_MIN = 100 * LOGIT_TOL_F32
 # the checkpoint phase: resume through train_loop (arch, batch, seq,
 # steps, checkpoint every), held to RESUME_RTOL; then h2o-danube-1.8b's
 # params written and read back
@@ -353,45 +395,50 @@ def _flash_times(torch, gen, case) -> dict:
     lib_dev = _device_ms(torch, f_sdpa, reps=5)
     bound, by = _bound(4.0 * B * H * _visible_pairs(S, causal, window) * d,
                        2 * q.nbytes + k.nbytes + v.nbytes, "bfloat16")
-    return {"shape": list(case), "ms": ms, "plain_ms": plain,
+    return {"shape": list(case), "dtype": str(q.dtype), "ms": ms,
+            "plain_ms": plain,
             "library_ms": lib, "device_ms": dev, "library_device_ms": lib_dev,
             "bound_ms": bound, "bound_by": by}
 
 
-def _decode_times(torch, gen, case, valid) -> dict:
-    """The bf16 decode kernel at `case` (B, W, H, K, d) with the (B, W)
-    mask `valid`, over 8 caches (beyond the 50 MB L2 when a cache is more
-    than 6 MB, as each layer's cache is cold when a decode step reaches
-    it): CUDA events, device-only, the plain version, SDPA and the
-    bound."""
+def _decode_times(torch, gen, case, valid, qt=None, ct=None) -> dict:
+    """The decode kernel at `case` (B, W, H, K, d) with the (B, W) mask
+    `valid`, q of dtype `qt` and caches of `ct` (both bf16 by default),
+    over 8 caches (beyond the 50 MB L2 when a cache is more than 6 MB, as
+    each layer's cache is cold when a decode step reaches it): CUDA
+    events, device-only, the plain version, SDPA and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     B, W, H, K, d = case
+    qt, ct = qt or torch.bfloat16, ct or torch.bfloat16
     n_sets = 8
-    q = _randn(torch, gen, (B, 1, H, d), torch.bfloat16)
-    ks = [_randn(torch, gen, (B, W, K, d), torch.bfloat16)
-          for _ in range(n_sets)]
-    vs = [_randn(torch, gen, (B, W, K, d), torch.bfloat16)
-          for _ in range(n_sets)]
+    q = _randn(torch, gen, (B, 1, H, d), qt)
+    ks = [_randn(torch, gen, (B, W, K, d), ct) for _ in range(n_sets)]
+    vs = [_randn(torch, gen, (B, W, K, d), ct) for _ in range(n_sets)]
     bias = _bias(torch, valid)
     d_call = lambda i: dops.decode_attention(  # noqa: E731
         q, ks[i % n_sets], vs[i % n_sets], bias)
     ms = _time_ms(d_call, reps=80, warmup=8)
     plain = _time_ms(lambda i: decode_attention_ref(
         q, ks[i % n_sets], vs[i % n_sets], bias), reps=40, warmup=8)
-    qt = q.transpose(1, 2)
+    q_t = q.transpose(1, 2)
     mask = bias[:, None, None, :]
+    # SDPA takes one dtype: under a float32 q it reads float32 copies of a
+    # bf16 cache (made here, not timed)
+    ks_t, vs_t = ([x.to(qt).transpose(1, 2) for x in xs] for xs in (ks, vs))
     d_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-        qt, ks[i % n_sets].transpose(1, 2), vs[i % n_sets].transpose(1, 2),
-        attn_mask=mask, enable_gqa=True)
+        q_t, ks_t[i % n_sets], vs_t[i % n_sets], attn_mask=mask,
+        enable_gqa=True)
     lib = _time_ms(d_sdpa, reps=40, warmup=8)
     dev = _device_ms(torch, d_call, reps=40, warmup=8)
     lib_dev = _device_ms(torch, d_sdpa, reps=40, warmup=8)
+    # a float32 q runs on the CUDA cores in float32
     bound, by = _bound(4.0 * B * H * W * d,
                        2 * q.nbytes + ks[0].nbytes + vs[0].nbytes
-                       + bias.nbytes, "bfloat16")
-    return {"shape": list(case), "ms": ms, "plain_ms": plain,
+                       + bias.nbytes, str(qt).removeprefix("torch."))
+    return {"shape": list(case), "dtype": str(qt) if qt == ct
+            else f"{qt}/{ct}", "ms": ms, "plain_ms": plain,
             "library_ms": lib, "device_ms": dev, "library_device_ms": lib_dev,
             "bound_ms": bound, "bound_by": by}
 
@@ -412,6 +459,7 @@ def phase_kernels(torch, seed: int) -> list:
     H, K, d, window = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                        cfg.sliding_window)
     hy = _hybrid()
+    wh, vlm = _config(WHISPER), _config(VLM)
     gen = torch.Generator(DEVICE).manual_seed(seed)
 
     # -- flash attention (prefill) --
@@ -420,9 +468,16 @@ def phase_kernels(torch, seed: int) -> list:
     # jamba's attention layer: d = 128, G = 4, causal, no window
     hy_flash = (BATCH, HY_PROMPT, hy.num_heads, hy.num_kv_heads,
                 hy.head_dim, True, None)
+    # whisper's encoder: 1500 frames (11 full 128-row q-tiles and 92 rows),
+    # non-causal, G = 1, d = 64; the VLM's self-attention: G = 8, d = 128
+    wh_flash = (BATCH, wh.num_audio_frames, wh.num_heads, wh.num_kv_heads,
+                wh.head_dim, False, None)
+    vlm_flash = (BATCH, VLM_PROMPT, vlm.num_heads, vlm.num_kv_heads,
+                 vlm.head_dim, True, None)
     for dt in (torch.float32, torch.bfloat16):
         extra = FLASH_BF16_DIMS if dt == torch.bfloat16 else []
-        for case in FLASH_SWEEP + extra + [hy_flash, h2o_flash]:
+        for case in FLASH_SWEEP + extra + [wh_flash, vlm_flash, hy_flash,
+                                           h2o_flash]:
             B, S, Hc, Kc, dc, causal, win = case
             q = _randn(torch, gen, (B, S, Hc, dc), dt)
             k = _randn(torch, gen, (B, S, Kc, dc), dt)
@@ -435,6 +490,8 @@ def phase_kernels(torch, seed: int) -> list:
             del gold
     f_times = _flash_times(torch, gen, h2o_flash)
     f_hy = _flash_times(torch, gen, hy_flash)
+    f_wh = _flash_times(torch, gen, wh_flash)
+    f_vlm = _flash_times(torch, gen, vlm_flash)
 
     # -- decode attention --
     decode_cases = []
@@ -445,16 +502,27 @@ def phase_kernels(torch, seed: int) -> list:
     hy_W = HY_PROMPT + GEN
     hy_valid = _ring_valid(torch, BATCH, hy_W, HY_PROMPT + GEN - 2)
     hy_decode = (BATCH, hy_W, hy.num_heads, hy.num_kv_heads, hy.head_dim)
+    # whisper's last decode step: 256 slots, G = 1, d = 64; the VLM's: a
+    # 4,128-slot cache, G = 8, d = 128 (neither wraps)
+    wh_W, vlm_W = WH_PROMPT + GEN, VLM_PROMPT + GEN
+    wh_valid = _ring_valid(torch, BATCH, wh_W, wh_W - 2)
+    vlm_valid = _ring_valid(torch, BATCH, vlm_W, vlm_W - 2)
+    wh_decode = (BATCH, wh_W, wh.num_heads, wh.num_kv_heads, wh.head_dim)
+    vlm_decode = (BATCH, vlm_W, vlm.num_heads, vlm.num_kv_heads,
+                  vlm.head_dim)
+    valids = {h2o_decode: ring, hy_decode: hy_valid, wh_decode: wh_valid,
+              vlm_decode: vlm_valid}
     # (q, cache) dtypes: float32, bf16, and a bf16 cache under float32 q
     for qt, ct in ((torch.float32, torch.float32),
                    (torch.bfloat16, torch.bfloat16),
                    (torch.float32, torch.bfloat16)):
-        for case in DECODE_SWEEP + [hy_decode, h2o_decode]:
+        for case in DECODE_SWEEP + [wh_decode, vlm_decode, hy_decode,
+                                    h2o_decode]:
             B, W, Hc, Kc, dc = case
             q = _randn(torch, gen, (B, 1, Hc, dc), qt)
             k = _randn(torch, gen, (B, W, Kc, dc), ct)
             v = _randn(torch, gen, (B, W, Kc, dc), ct)
-            valid = {h2o_decode: ring, hy_decode: hy_valid}.get(case)
+            valid = valids.get(case)
             if valid is None:
                 valid = torch.rand((B, W), generator=gen,
                                    device=DEVICE) < 0.8
@@ -467,6 +535,16 @@ def phase_kernels(torch, seed: int) -> list:
                 torch, o, gold, case, qt if qt == ct else f"{qt}/{ct}"))
     d_times = _decode_times(torch, gen, h2o_decode, ring)
     d_hy = _decode_times(torch, gen, hy_decode, hy_valid)
+    d_wh = _decode_times(torch, gen, wh_decode, wh_valid)
+    d_vlm = _decode_times(torch, gen, vlm_decode, vlm_valid)
+    # the float32-q route at G = 8 (the VLM's float32 gate takes it), with
+    # a float32 and with a bf16 cache
+    d_vlm_f32 = {}
+    for qt, ct in ((torch.float32, torch.float32),
+                   (torch.float32, torch.bfloat16)):
+        label = str(qt) if qt == ct else f"{qt}/{ct}"   # as decode_cases'
+        d_vlm_f32[label] = _decode_times(torch, gen, vlm_decode, vlm_valid,
+                                         qt, ct)
 
     wkv = _wkv6_kernel(torch, gen)
 
@@ -483,9 +561,13 @@ def phase_kernels(torch, seed: int) -> list:
     if bad:
         _fail(f"kernels disagree with their plain versions: {bad}")
     for name, t in (("flash_attention", f_times), ("flash_attention", f_hy),
+                    ("flash_attention", f_wh), ("flash_attention", f_vlm),
                     ("decode_attention", d_times),
-                    ("decode_attention", d_hy)):
-        print(f"  {name} at {t['shape']} bf16: {t['ms']:.4f} ms (plain "
+                    ("decode_attention", d_hy), ("decode_attention", d_wh),
+                    ("decode_attention", d_vlm),
+                    *(("decode_attention", t) for t in d_vlm_f32.values())):
+        print(f"  {name} at {t['shape']} {t['dtype']}: {t['ms']:.4f} ms "
+              f"(plain "
               f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms by {t['bound_by']}); device only "
               f"{_fmt(t['device_ms'])} ms, SDPA "
@@ -509,6 +591,10 @@ def phase_kernels(torch, seed: int) -> list:
          "launches": None, "max_abs_err": flash_cases[-1]["max_abs_err"],
          **f_times, "at_" + HYBRID: dict(f_hy, max_abs_err=_case_err(
              flash_cases, hy_flash, torch.bfloat16)),
+         "at_" + WHISPER + " encoder": dict(f_wh, max_abs_err=_case_err(
+             flash_cases, wh_flash, torch.bfloat16)),
+         "at_" + VLM: dict(f_vlm, max_abs_err=_case_err(
+             flash_cases, vlm_flash, torch.bfloat16)),
          "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/"
@@ -518,6 +604,13 @@ def phase_kernels(torch, seed: int) -> list:
          "launches": None, "max_abs_err": decode_cases[-1]["max_abs_err"],
          **d_times, "at_" + HYBRID: dict(d_hy, max_abs_err=_case_err(
              decode_cases, hy_decode, torch.bfloat16)),
+         "at_" + WHISPER: dict(d_wh, max_abs_err=_case_err(
+             decode_cases, wh_decode, torch.bfloat16)),
+         "at_" + VLM: dict(d_vlm, max_abs_err=_case_err(
+             decode_cases, vlm_decode, torch.bfloat16)),
+         **{f"at_{VLM} {label}": dict(t, max_abs_err=_case_err(
+             decode_cases, vlm_decode, label))
+            for label, t in d_vlm_f32.items()},
          "cases": decode_cases},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
@@ -632,9 +725,6 @@ def _hybrid(**replace):
 
 
 def phase_serve(torch, seed: int, card: str) -> dict:
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
 
     cfg = _h2o()
@@ -642,31 +732,10 @@ def phase_serve(torch, seed: int, card: str) -> dict:
     prompts = torch.randint(
         0, cfg.vocab_size, (BATCH, PROMPT), device=DEVICE,
         generator=torch.Generator(DEVICE).manual_seed(seed + 1))
-    torch.cuda.reset_peak_memory_stats()
-
-    fops.flash_attention.launches = 0
-    dops.decode_attention.launches = 0
-    tokens, stats, logits = serve(cfg, batch=BATCH, prompt_len=PROMPT,
-                                  gen=GEN, seed=seed, use_kernels=True,
-                                  device=DEVICE, params=params,
-                                  prompts=prompts)
-    launches = {"flash_attention": fops.flash_attention.launches,
-                "decode_attention": dops.decode_attention.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"flash_attention": cfg.num_layers,
             "decode_attention": cfg.num_layers * (GEN - 1)}
-    print(f"  launches {launches} (expected {want})")
-    if launches != want:
-        _fail(f"serve launched {launches}, expected {want}")
-    Vp = cfg.padded_vocab()
-    if tuple(tokens.shape) != (BATCH, GEN) or tuple(logits.shape) != (
-            BATCH, GEN, Vp):
-        _fail(f"shapes: tokens {tuple(tokens.shape)}, logits "
-              f"{tuple(logits.shape)}")
-    if not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
-        _fail("generated token ids out of the vocabulary")
-    if not bool(torch.isfinite(logits).all()):
-        _fail("non-finite logits on the kernel path")
+    tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
+        torch, cfg, params, prompts, None, want)
 
     # The kernel path against the plain path, both teacher-forced with the
     # kernel path's tokens, and a float32 run of the same model as the
@@ -681,36 +750,11 @@ def phase_serve(torch, seed: int, card: str) -> dict:
     kern32, _ = _teacher_forced(cfg32, params32, prompts, tokens, True,
                                 torch.float32)
     del params32
-
-    def err(a, b):         # max |a - b| at each position: (GEN,)
-        return (a - b).abs().amax(dim=(0, 2))
-
-    def rms(a, b):
-        return (a - b).square().mean().sqrt().item()
-    e_f32 = err(kern32, gold)
-    e_kernel, e_plain = err(logits, gold), err(plain, gold)
-    excess = (e_kernel - e_plain).max().item()
-    rms_ratio = rms(logits, gold) / rms(plain, gold)
-    print(f"  float32, kernel path vs plain path: max |dlogit| "
-          f"{e_f32.max().item():.3e} (tol {LOGIT_TOL_F32})")
-    print(f"  bf16 vs the float32 plain path: max |dlogit| kernel path "
-          f"{e_kernel.max().item():.4f}, plain path "
-          f"{e_plain.max().item():.4f}; RMS kernel path "
-          f"{rms(logits, gold):.5f}, plain path {rms(plain, gold):.5f}; "
-          f"kernel path vs plain path {err(logits, plain).max().item():.4f} "
-          f"(prefill {err(logits, plain)[0].item():.4f})")
-    print(f"  bf16 kernel-path excess over the plain path: largest per "
-          f"position {excess:.4f} (tol {BF16_EXCESS_TOL}), RMS ratio "
-          f"{rms_ratio:.4f} (tol {BF16_RMS_RATIO})")
-    if not e_f32.max().item() <= LOGIT_TOL_F32:
-        _fail(f"float32: the kernel path's logits differ from the plain "
-              f"path's by {e_f32.max().item()} > {LOGIT_TOL_F32}")
-    if not excess <= BF16_EXCESS_TOL:
-        _fail(f"bf16: the kernel path is {excess} farther from float32 than "
-              f"the plain path at some position (tol {BF16_EXCESS_TOL})")
-    if not rms_ratio <= BF16_RMS_RATIO:
-        _fail(f"bf16: the kernel path's RMS logit error is {rms_ratio} times "
-              f"the plain path's (tol {BF16_RMS_RATIO})")
+    _f32_gate(kern32, gold, ARCH)
+    gap = (logits - plain).abs().amax(dim=(0, 2))
+    print(f"  bf16 kernel path vs plain path: max |dlogit| "
+          f"{gap.max().item():.4f} (prefill {gap[0].item():.4f})")
+    _excess_gate(logits, plain, gold, ARCH)
     print(f"  serve {ARCH} ({cfg.num_layers} layers, bf16) batch {BATCH} "
           f"prompt {PROMPT} "
           f"gen {GEN} on {card}: prefill "
@@ -729,11 +773,13 @@ def phase_serve(torch, seed: int, card: str) -> dict:
     return launches, dict(stats, profile=prof)
 
 
-def _profile_decode(torch, cfg, params, prompts, tokens, steady_s) -> dict:
+def _profile_decode(torch, cfg, params, prompts, tokens, steady_s,
+                    extra=None) -> dict:
     """Trace PROFILE_STEPS kernel-path decode steps (after two untraced
     ones) with torch.profiler: device busy time and device events per step,
     the kernels that take most of it, and the device's idle share against
-    the untraced steady decode step `steady_s`."""
+    the untraced steady decode step `steady_s`. `extra`: the prefill's
+    cross-attention input."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill, make_serve_step
@@ -742,7 +788,8 @@ def _profile_decode(torch, cfg, params, prompts, tokens, steady_s) -> dict:
     prefill = make_prefill(cfg)
     step = make_serve_step(cfg)
     with torch.no_grad():
-        _, caches = prefill(params, caches, {"tokens": prompts})
+        _, caches = prefill(params, caches, {"tokens": prompts,
+                                             "extra": extra or {}})
         for t in range(1, 3):
             _, caches, _ = step(params, caches, tokens[:, t - 1:t])
         torch.cuda.synchronize()
@@ -835,52 +882,68 @@ def _route_diffs(torch, cfg, a, b, shape) -> dict:
             "agree": agree}
 
 
-def _prefill_split(torch, cfg, params, prompts) -> dict:
-    """CUDA-event time of each layer function of `models.layers` over one
-    kernel-path prefill (the functions wrapped for this run only; nested
-    ones are inside their callers' time)."""
-    from repro_torch.models import layers as L
-    from repro_torch.models import model as M
-    from repro_torch.train.steps import make_prefill
-    names = ("moe_ffn", "_expert_ffn", "mamba", "_mamba_ssm_chunked",
-             "self_attention", "swiglu")
-    real = {n: getattr(L, n) for n in names}
-    spans = {n: [] for n in names}
+@contextlib.contextmanager
+def _timed(torch, targets):
+    """Wrap each function `name` of `module`, for (module, name) in
+    `targets`, with CUDA events around each call, for the `with` block
+    only; yields {name: [(start, end), ...]} (read after a synchronize).
+    Callers find the wrapper by the module's global, so a kernel wrapper's
+    own launch count is untouched."""
+    real = {(m, n): getattr(m, n) for m, n in targets}
+    spans = {n: [] for _, n in targets}
 
-    def timed(name):
+    def timed(module, name):
         def call(*a, **k):
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
-            out = real[name](*a, **k)
+            out = real[module, name](*a, **k)
             e.record()
             spans[name].append((s, e))
             return out
         return call
+    for m, n in targets:
+        setattr(m, n, timed(m, n))
+    try:
+        yield spans
+    finally:
+        for (m, n), fn in real.items():
+            setattr(m, n, fn)
+
+
+def _span_ms(spans) -> dict:
+    return {n: sum(a.elapsed_time(b) for a, b in v) for n, v in spans.items()}
+
+
+def _prefill_split(torch, cfg, params, prompts, names, extra=None,
+                   model_names=()) -> dict:
+    """CUDA-event time of each function `names` of `models.layers` (and
+    `model_names` of `models.model`) over one kernel-path prefill (the
+    functions wrapped for this run only; nested ones are inside their
+    callers' time). `extra`: the cross-attention input."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill
     caches = M.init_caches(cfg, prompts.shape[0], prompts.shape[1] + GEN,
                            device=DEVICE)
     prefill = make_prefill(cfg)
-    for n in names:
-        setattr(L, n, timed(n))
-    try:
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            prefill(params, caches, {"tokens": prompts})
-            e.record()
-            torch.cuda.synchronize()
-    finally:
-        for n in names:
-            setattr(L, n, real[n])
-    out = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in spans.items()}
+    targets = [(L, n) for n in names] + [(M, n) for n in model_names]
+    with _timed(torch, targets) as spans, torch.no_grad():
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        prefill(params, caches, {"tokens": prompts, "extra": extra or {}})
+        e.record()
+        torch.cuda.synchronize()
+    out = _span_ms(spans)
     out["calls"] = {n: len(v) for n, v in spans.items()}
     out["prefill"] = s.elapsed_time(e)
     return out
 
 
-def _profile_prefill(torch, cfg, params, prompts) -> dict:
+def _profile_prefill(torch, cfg, params, prompts, extra=None) -> dict:
     """One kernel-path prefill under torch.profiler: device busy ms and the
-    TOP_OPS device ops by their summed time."""
+    TOP_OPS device ops by their summed time. `extra`: the cross-attention
+    input."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill
@@ -891,7 +954,8 @@ def _profile_prefill(torch, cfg, params, prompts) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            prefill(params, caches, {"tokens": prompts})
+            prefill(params, caches, {"tokens": prompts,
+                                     "extra": extra or {}})
             torch.cuda.synchronize()
     spans, by_name = _device_spans(torch, prof), {}
     for ev in prof.events():
@@ -946,51 +1010,23 @@ def _hybrid_f32_gate(torch, seed: int) -> dict:
 def phase_serve_hybrid(torch, seed: int, card: str) -> tuple:
     """jamba-v0.1-52b, one period at full width: serve through the
     kernels, the bf16 and float32 gates, and where the time goes."""
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
-    from repro_torch.tree import tree_leaves
 
     cfg = _hybrid()
     specs = M.block_specs(cfg)
     n_attn = (sum(sp["kind"] == "attn" for sp in specs)
               * (cfg.num_layers // len(specs)))
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
-    leaves = tree_leaves(params)
-    n_params = sum(p.numel() for p in leaves)
-    weights_gb = sum(p.nbytes for p in leaves) / 1e9
-    del leaves
+    n_params, weights_gb = _weights(params)
     prompts = torch.randint(
         0, cfg.vocab_size, (BATCH, HY_PROMPT), device=DEVICE,
         generator=torch.Generator(DEVICE).manual_seed(seed + 1))
-
-    fops.flash_attention.launches = 0
-    dops.decode_attention.launches = 0
-    with _recorded_routes() as kernel_routes:
-        tokens, stats, logits = serve(cfg, batch=BATCH, prompt_len=HY_PROMPT,
-                                      gen=GEN, seed=seed, use_kernels=True,
-                                      device=DEVICE, params=params,
-                                      prompts=prompts)
-    launches = {"flash_attention": fops.flash_attention.launches,
-                "decode_attention": dops.decode_attention.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"flash_attention": n_attn,
             "decode_attention": n_attn * (GEN - 1)}
-    print(f"  launches {launches} (expected {want})")
-    if launches != want:
-        _fail(f"serve {HYBRID} launched {launches}, expected {want}")
-    Vp = cfg.padded_vocab()
-    if tuple(tokens.shape) != (BATCH, GEN) or tuple(logits.shape) != (
-            BATCH, GEN, Vp):
-        _fail(f"{HYBRID} shapes: tokens {tuple(tokens.shape)}, logits "
-              f"{tuple(logits.shape)}")
-    if not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
-        _fail(f"{HYBRID}: generated token ids out of the vocabulary")
-    if not bool(torch.isfinite(logits).all()):
-        _fail(f"{HYBRID}: non-finite logits on the kernel path")
+    with _recorded_routes() as kernel_routes:
+        tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
+            torch, cfg, params, prompts, None, want)
     print(f"  serve {HYBRID} ({cfg.num_layers} of 32 layers, bf16, "
           f"{n_params / 1e9:.3f} B params, {weights_gb:.2f} GB of weights) "
           f"batch {BATCH} prompt {HY_PROMPT} gen {GEN} on {card}: prefill "
@@ -1039,7 +1075,9 @@ def phase_serve_hybrid(torch, seed: int, card: str) -> tuple:
               f"{agree.numel()} positions)")
     del plain
 
-    split = _prefill_split(torch, cfg, params, prompts)
+    split = _prefill_split(torch, cfg, params, prompts, (
+        "moe_ffn", "_expert_ffn", "mamba", "_mamba_ssm_chunked",
+        "self_attention", "swiglu"))
     moe, ex = split["moe_ffn"], split["_expert_ffn"]
     mam, scan = split["mamba"], split["_mamba_ssm_chunked"]
     att = split["self_attention"]
@@ -1076,6 +1114,315 @@ def phase_serve_hybrid(torch, seed: int, card: str) -> tuple:
         plain_path={"prefill_s": plain_s[0], "decode_s": plain_s[1]},
         prefill_split_ms=split, prefill_profile=top, profile=prof,
         float32_gate=f32)
+
+
+def _serve_counted(torch, cfg, params, prompts, extra, want, targets=()):
+    """`serve` through the kernels, each kernel's count set to 0 just
+    before the run and read just after: the counts must equal `want`;
+    tokens, logits and their shapes are checked. `targets` are timed
+    during the run (see `_timed`). Returns (tokens, stats, logits,
+    launches, peak memory GB, the targets' ms)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import serve
+    B, P = prompts.shape
+    torch.cuda.reset_peak_memory_stats()
+    fops.flash_attention.launches = 0
+    dops.decode_attention.launches = 0
+    with _timed(torch, targets) as spans:
+        tokens, stats, logits = serve(cfg, batch=B, prompt_len=P, gen=GEN,
+                                      use_kernels=True, device=DEVICE,
+                                      params=params, prompts=prompts,
+                                      extra=extra)
+    launches = {"flash_attention": fops.flash_attention.launches,
+                "decode_attention": dops.decode_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    print(f"  launches {launches} (expected {want})")
+    if launches != want:
+        _fail(f"serve {cfg.name} launched {launches}, expected {want}")
+    if tuple(tokens.shape) != (B, GEN) or tuple(logits.shape) != (
+            B, GEN, cfg.padded_vocab()):
+        _fail(f"{cfg.name} shapes: tokens {tuple(tokens.shape)}, logits "
+              f"{tuple(logits.shape)}")
+    if not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
+        _fail(f"{cfg.name}: generated token ids out of the vocabulary")
+    if not bool(torch.isfinite(logits).all()):
+        _fail(f"{cfg.name}: non-finite logits on the kernel path")
+    return tokens, stats, logits, launches, peak_gb, _span_ms(spans)
+
+
+def _excess_gate(kern, plain, gold, name) -> dict:
+    """Phase 4's bf16 gate and limits: each bf16 path's logits (B, G, Vp)
+    against the float32 plain path's `gold`; at no position may the kernel
+    path's largest error exceed the plain path's by more than
+    BF16_EXCESS_TOL, and its RMS error over all logits may be at most
+    BF16_RMS_RATIO times the plain path's."""
+    excess_tol, rms_tol = BF16_EXCESS_TOL, BF16_RMS_RATIO
+    def err(a, b):         # max |a - b| at each position: (G,)
+        return (a - b).abs().amax(dim=(0, 2))
+
+    def rms(a, b):
+        return (a - b).square().mean().sqrt().item()
+    e_kernel, e_plain = err(kern, gold), err(plain, gold)
+    excess = (e_kernel - e_plain).max().item()
+    ratio = rms(kern, gold) / rms(plain, gold)
+    print(f"  bf16 vs the float32 plain path: max |dlogit| kernel path "
+          f"{e_kernel.max().item():.4f}, plain path "
+          f"{e_plain.max().item():.4f}; RMS kernel path "
+          f"{rms(kern, gold):.5f}, plain path {rms(plain, gold):.5f}; "
+          f"kernel-path excess largest per position {excess:.4f} (tol "
+          f"{excess_tol}), RMS ratio {ratio:.4f} (tol {rms_tol})")
+    if not excess <= excess_tol:
+        _fail(f"{name} bf16: the kernel path is {excess} farther from "
+              f"float32 than the plain path at some position (tol "
+              f"{excess_tol})")
+    if not ratio <= rms_tol:
+        _fail(f"{name} bf16: the kernel path's RMS logit error is {ratio} "
+              f"times the plain path's (tol {rms_tol})")
+    return {"max_err_kernel": e_kernel.max().item(),
+            "max_err_plain": e_plain.max().item(), "excess": excess,
+            "rms_ratio": ratio, "excess_tol": excess_tol,
+            "rms_ratio_tol": rms_tol}
+
+
+def _f32_gate(kern32, plain32, name) -> float:
+    """The float32 logits (B, G, Vp) of the two paths within LOGIT_TOL_F32
+    at every position (the first is the prefill's last)."""
+    by_pos = (kern32 - plain32).abs().amax(dim=(0, 2))
+    err = by_pos.max().item()
+    print(f"  float32, kernel path vs plain path: max |dlogit| {err:.3e} "
+          f"(tol {LOGIT_TOL_F32}); by position "
+          f"{' '.join(f'{e:.1e}' for e in by_pos.tolist())}")
+    if not err <= LOGIT_TOL_F32:
+        _fail(f"{name} float32: the kernel path's logits differ from the "
+              f"plain path's by {err} > {LOGIT_TOL_F32}")
+    return err
+
+
+def _live(a, b, what, name) -> float:
+    """The float32 logits must move by at least LIVE_MIN when the cross
+    path's input is taken away: else the gates above held a dead path."""
+    moved = (a - b).abs().max().item()
+    print(f"  liveness: {what} moves the float32 logits by {moved:.4e} "
+          f"(at least {LIVE_MIN})")
+    if not moved >= LIVE_MIN:
+        _fail(f"{name}: {what} moves the logits by only {moved}")
+    return moved
+
+
+def _weights(params) -> tuple:
+    """(parameter count, GB) of a params tree."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    return (sum(p.numel() for p in leaves),
+            sum(p.nbytes for p in leaves) / 1e9)
+
+
+def _set_gates(params, cfg, value) -> None:
+    """Every cross-attention gate (the VLM's xattn layers) to `value`."""
+    from repro_torch.models import model as M
+    for i, spec in enumerate(M.block_specs(cfg)):
+        if spec["kind"] == "xattn":
+            params["layers"][i]["attn"]["gate"].fill_(value)
+
+
+def _serve_whisper(torch, seed: int, card: str) -> tuple:
+    """whisper-large-v3 whole, bf16: serve through the kernels with random
+    frames (the encoder's time by CUDA events), the float32 and bf16 gates
+    and liveness, and where the time goes."""
+    from repro_torch.models import model as M
+    cfg = _config(WHISPER)
+    torch.cuda.empty_cache()
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    n_params, weights_gb = _weights(params)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (BATCH, WH_PROMPT), device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(seed + 1))
+    frames = torch.randn(
+        (BATCH, cfg.num_audio_frames, cfg.d_model), device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(seed + 3)).to(
+        torch.bfloat16)
+    extra = {"audio_frames": frames}
+    want = {"flash_attention": cfg.encoder_layers + cfg.num_layers,
+            "decode_attention": cfg.num_layers * (GEN - 1)}
+    tokens, stats, logits, launches, peak_gb, timed = _serve_counted(
+        torch, cfg, params, prompts, extra, want,
+        targets=[(M, "_run_encoder")])
+    enc_ms = timed["_run_encoder"]
+    print(f"  serve {WHISPER} ({cfg.encoder_layers} encoder + "
+          f"{cfg.num_layers} decoder layers, bf16, {n_params / 1e9:.3f} B "
+          f"params, {weights_gb:.2f} GB of weights) batch {BATCH}, "
+          f"{cfg.num_audio_frames} frames, prompt {WH_PROMPT}, gen {GEN} on "
+          f"{card}: prefill {stats['prefill_tokens_per_s']:.1f} tok/s "
+          f"({stats['prefill_s']:.4f} s, of it the encoder {enc_ms:.2f} ms "
+          f"by CUDA events), decode {stats['decode_tokens_per_s']:.1f} tok/s "
+          f"({stats['decode_s']:.4f} s; first step "
+          f"{stats['decode_first_step_s'] * 1e3:.2f} ms, steady "
+          f"{stats['decode_steady_step_s'] * 1e3:.2f} ms/step = "
+          f"{stats['decode_steady_tokens_per_s']:.1f} tok/s); peak memory "
+          f"{peak_gb:.2f} GB")
+
+    # the kernel path against the plain path, teacher-forced with the
+    # kernel path's tokens, and a float32 run of the same weights and
+    # frames as the yardstick; then the frames zeroed
+    plain, plain_s = _teacher_forced(cfg, params, prompts, tokens, False,
+                                     torch.bfloat16, extra)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _cast(params, torch.float32)
+    extra32 = {"audio_frames": frames.float()}
+    gold, _ = _teacher_forced(cfg32, params32, prompts, tokens, False,
+                              torch.float32, extra32)
+    kern32, _ = _teacher_forced(cfg32, params32, prompts, tokens, True,
+                                torch.float32, extra32)
+    zeroed, _ = _teacher_forced(
+        cfg32, params32, prompts, tokens, True, torch.float32,
+        {"audio_frames": torch.zeros_like(extra32["audio_frames"])})
+    del params32
+    torch.cuda.empty_cache()
+    f32_err = _f32_gate(kern32, gold, WHISPER)
+    bf16 = _excess_gate(logits, plain, gold, WHISPER)
+    live = _live(kern32, zeroed, "zeroing the audio frames", WHISPER)
+    del plain, gold, kern32, zeroed
+    print(f"  plain path: prefill {BATCH * WH_PROMPT / plain_s[0]:.1f} "
+          f"tok/s, decode {BATCH * (GEN - 1) / plain_s[1]:.1f} tok/s")
+
+    split = _prefill_split(torch, cfg, params, prompts,
+                           ("self_attention", "cross_attention", "swiglu"),
+                           extra, ("_run_encoder",))
+    top = _profile_prefill(torch, cfg, params, prompts, extra)
+    _print_split(split, top)
+    prof = _profile_decode(torch, cfg, params, prompts, tokens,
+                           stats["decode_steady_step_s"], extra)
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches, dict(
+        stats, encoder_ms=enc_ms, params=n_params, weights_gb=weights_gb,
+        peak_memory_gb=peak_gb, tokens=tokens.tolist(),
+        float32_gate={"max_abs_logit_err": f32_err}, bf16_gate=bf16,
+        liveness={"zeroed_frames_max_abs_logit_move": live},
+        plain_path={"prefill_s": plain_s[0], "decode_s": plain_s[1]},
+        prefill_split_ms=split, prefill_profile=top, profile=prof)
+
+
+def _print_split(split, top) -> None:
+    rest = split["prefill"] - sum(v for k, v in split.items()
+                                  if k not in ("calls", "prefill",
+                                               "_run_encoder"))
+    print(f"  prefill split (CUDA events, one prefill, "
+          f"{split['prefill']:.1f} ms): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()
+                      if k not in ("calls", "prefill"))
+          + f"; outside the layer functions {rest:.1f} ms; calls "
+          f"{split['calls']}")
+    print(f"  prefill profile (torch.profiler): device busy "
+          f"{_fmt(top['device_busy_ms'])} ms over {top['device_events']} "
+          f"device events; the top {TOP_OPS} device ops:")
+    for n, ms in top["top_device_ms"].items():
+        print(f"    {ms:9.3f} ms  {n[:100]}")
+
+
+def _serve_vlm(torch, seed: int, card: str) -> tuple:
+    """llama-3.2-vision-90b at full width, one period, bf16: serve through
+    the kernels with random image embeddings and the gate at XA_GATE;
+    where the time goes; then the gates at VLM_GATES: bf16 (kernel and
+    plain paths against float32), float32 (kernel vs plain path, after the
+    bf16 weights are freed) and liveness (gate 0 against XA_GATE)."""
+    from repro_torch.models import model as M
+    cfg = _config(VLM, num_layers=VLM_LAYERS)
+    specs = M.block_specs(cfg)
+    n_attn = (sum(sp["kind"] == "attn" for sp in specs)
+              * (cfg.num_layers // len(specs)))
+    torch.cuda.empty_cache()
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    _set_gates(params, cfg, XA_GATE)
+    n_params, weights_gb = _weights(params)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (BATCH, VLM_PROMPT), device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(seed + 1))
+    embeds = torch.randn(
+        (BATCH, cfg.num_image_tokens, cfg.d_model), device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(seed + 3)).to(
+        torch.bfloat16)
+    extra = {"image_embeds": embeds}
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * (GEN - 1)}
+    tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
+        torch, cfg, params, prompts, extra, want)
+    print(f"  serve {VLM} ({cfg.num_layers} of 100 layers, bf16, "
+          f"{n_params / 1e9:.3f} B params, {weights_gb:.2f} GB of weights, "
+          f"gate {XA_GATE}) batch {BATCH}, {cfg.num_image_tokens} image "
+          f"tokens, prompt {VLM_PROMPT}, gen {GEN} on {card}: prefill "
+          f"{stats['prefill_tokens_per_s']:.1f} tok/s "
+          f"({stats['prefill_s']:.4f} s), decode "
+          f"{stats['decode_tokens_per_s']:.1f} tok/s "
+          f"({stats['decode_s']:.4f} s; first step "
+          f"{stats['decode_first_step_s'] * 1e3:.2f} ms, steady "
+          f"{stats['decode_steady_step_s'] * 1e3:.2f} ms/step = "
+          f"{stats['decode_steady_tokens_per_s']:.1f} tok/s); peak memory "
+          f"{peak_gb:.2f} GB")
+    del logits
+    split = _prefill_split(torch, cfg, params, prompts,
+                           ("self_attention", "cross_attention", "swiglu"),
+                           extra)
+    top = _profile_prefill(torch, cfg, params, prompts, extra)
+    _print_split(split, top)
+    prof = _profile_decode(torch, cfg, params, prompts, tokens,
+                           stats["decode_steady_step_s"], extra)
+    del extra, embeds
+
+    B, P, steps = VLM_GATES
+    g = torch.Generator(DEVICE).manual_seed(seed + 2)
+    g_prompts = torch.randint(0, cfg.vocab_size, (B, P), device=DEVICE,
+                              generator=g)
+    g_tokens = torch.randint(0, cfg.vocab_size, (B, steps + 1),
+                             device=DEVICE, generator=g)
+    g_embeds = torch.randn((B, cfg.num_image_tokens, cfg.d_model),
+                           device=DEVICE, generator=g).to(torch.bfloat16)
+    kern16, _ = _teacher_forced(cfg, params, g_prompts, g_tokens, True,
+                                torch.bfloat16, {"image_embeds": g_embeds})
+    plain16, _ = _teacher_forced(cfg, params, g_prompts, g_tokens, False,
+                                 torch.bfloat16, {"image_embeds": g_embeds})
+    params32 = _cast(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    extra32 = {"image_embeds": g_embeds.float()}
+    runs = {}
+    for use_kernels in (False, True):
+        runs[use_kernels], _ = _teacher_forced(
+            cfg32, params32, g_prompts, g_tokens, use_kernels, torch.float32,
+            extra32)
+    _set_gates(params32, cfg32, 0.0)
+    shut, _ = _teacher_forced(cfg32, params32, g_prompts, g_tokens, True,
+                              torch.float32, extra32)
+    del params32
+    torch.cuda.empty_cache()
+    print(f"  gates at batch {B}, prompt {P}, {steps} decode steps:")
+    f32_err = _f32_gate(runs[True], runs[False], VLM)
+    bf16 = _excess_gate(kern16, plain16, runs[False], VLM)
+    live = _live(runs[True], shut, f"the gate at 0 instead of {XA_GATE}",
+                 VLM)
+    return launches, dict(
+        stats, layers=cfg.num_layers, params=n_params, weights_gb=weights_gb,
+        peak_memory_gb=peak_gb, tokens=tokens.tolist(), gate=XA_GATE,
+        gates_at={"batch": B, "prompt": P, "decode_steps": steps},
+        float32_gate={"max_abs_logit_err": f32_err}, bf16_gate=bf16,
+        liveness={"gate0_max_abs_logit_move": live},
+        prefill_split_ms=split, prefill_profile=top, profile=prof)
+
+
+def phase_serve_xattn(torch, seed: int, card: str) -> tuple:
+    """The cross-attention families: whisper-large-v3 whole, then
+    llama-3.2-vision-90b's one period. Returns (launches by model,
+    results by model)."""
+    print(f"  -- {WHISPER}")
+    wh_launches, wh = _serve_whisper(torch, seed, card)
+    print(f"  -- {VLM} ({VLM_LAYERS} layers)")
+    vlm_launches, vlm = _serve_vlm(torch, seed, card)
+    return ({WHISPER: wh_launches, VLM: vlm_launches},
+            {WHISPER: wh, VLM: vlm})
 
 
 def phase_checkpoint(torch, seed: int, card: str) -> dict:
@@ -1338,10 +1685,11 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def _teacher_forced(cfg, params, prompts, tokens, use_kernels, cache_dtype):
-    """Prefill `prompts` (B, P), then decode feeding `tokens[:, :-1]`
-    (tokens (B, G)): the logits (B, G, Vp) float32 at each position, and
-    (prefill s, decode s)."""
+def _teacher_forced(cfg, params, prompts, tokens, use_kernels, cache_dtype,
+                    extra=None):
+    """Prefill `prompts` (B, P) (with the cross-attention input `extra`),
+    then decode feeding `tokens[:, :-1]` (tokens (B, G)): the logits (B, G,
+    Vp) float32 at each position, and (prefill s, decode s)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill, make_serve_step
@@ -1352,7 +1700,8 @@ def _teacher_forced(cfg, params, prompts, tokens, use_kernels, cache_dtype):
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, caches = prefill(params, caches, {"tokens": prompts})
+        lg, caches = prefill(params, caches, {"tokens": prompts,
+                                              "extra": extra or {}})
         out = [lg[:, -1].float()]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -1382,18 +1731,21 @@ def main() -> int:
     launches, serve_stats = phase_serve(torch, args.seed, card)
     print("== serve-hybrid")
     hy_launches, hybrid_stats = phase_serve_hybrid(torch, args.seed, card)
+    print("== serve-xattn")
+    xa_launches, xattn_stats = phase_serve_xattn(torch, args.seed, card)
     print("== train")
     train_launches, train_stats = phase_train(torch, args.seed, card)
     print("== checkpoint")
     ckpt_stats = phase_checkpoint(torch, args.seed, card)
     hy_path = f"serve {HYBRID} ({HY_LAYERS} layers)"
-    by_path = {"flash_attention": {f"serve {ARCH}":
-                                   launches["flash_attention"],
-                                   hy_path: hy_launches["flash_attention"]},
-               "decode_attention": {f"serve {ARCH}":
-                                    launches["decode_attention"],
-                                    hy_path: hy_launches["decode_attention"]},
-               "wkv6": {}}
+    xa_paths = {WHISPER: f"serve {WHISPER}",
+                VLM: f"serve {VLM} ({VLM_LAYERS} layers)"}
+    by_path = {name: {f"serve {ARCH}": launches[name],
+                      hy_path: hy_launches[name],
+                      **{path: xa_launches[m][name]
+                         for m, path in xa_paths.items()}}
+               for name in ("flash_attention", "decode_attention")}
+    by_path["wkv6"] = {}
     for path, n in train_launches.items():
         by_path["wkv6" if RWKV in path else "flash_attention"][path] = n
     for k in kernels:
@@ -1404,6 +1756,7 @@ def main() -> int:
         k["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels, "card": card,
                       "serve": serve_stats, "serve_hybrid": hybrid_stats,
+                      "serve_xattn": xattn_stats,
                       "train": train_stats, "checkpoint": ckpt_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

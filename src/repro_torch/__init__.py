@@ -1,5 +1,7 @@
 """PyTorch / CUDA port of the `repro` model stack: the serve and train
-paths of the dense decoders and RWKV6.
+paths of every model family (dense decoders, MoE, the Mamba + attention
+hybrid, RWKV6, the cross-attention VLM and whisper's encoder-decoder),
+and the streaming checkpointer.
 
 The package mirrors `repro`: `configs/`, `models/`, `train/steps.py`,
 `optim/`, `data/`, `core/elastic.py`, `launch/{serve,train}.py` and

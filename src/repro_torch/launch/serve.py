@@ -6,8 +6,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-v0.1-52b --layers 8 --batch 4 --prompt-len 4096
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --batch 4 --prompt-len 224
+
 `--layers` cuts the model's depth to a whole number of its periods (one
-period of jamba-v0.1-52b, 8 of its 32 layers, fits one 80 GB card in bf16).
+period of jamba-v0.1-52b, 8 of its 32 layers, or of llama-3.2-vision-90b,
+5 of its 100, fits one 80 GB card in bf16); for whisper it cuts the
+decoder only. The cross-attention families are fed zero image embeddings
+or audio frames, as the reference's serve feeds them.
 
 Port of `repro.launch.serve`. Runs on the CUDA card unless `--device cpu`.
 """
@@ -32,14 +38,31 @@ def _clock(dev: torch.device) -> float:
     return time.perf_counter()  # simlint: ok[DET002]
 
 
+def _zero_extra(cfg, batch, device) -> dict:
+    """The reference serve's cross-attention input: zero bf16 image
+    embeddings (VLM) or audio frames (whisper), {} for other families."""
+    extra = {}
+    if cfg.cross_attn_every:
+        extra["image_embeds"] = torch.zeros(
+            (batch, cfg.num_image_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    if cfg.encoder_layers:
+        extra["audio_frames"] = torch.zeros(
+            (batch, cfg.num_audio_frames, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    return extra
+
+
 def serve(cfg, *, batch, prompt_len, gen, seed=0, use_kernels=True,
-          device=None, params=None, prompts=None):
+          device=None, params=None, prompts=None, extra=None):
     """Prefill `batch` prompts of `prompt_len` tokens, then decode greedily.
 
     The first generated token comes from the prefill, the other gen-1 from
     decode steps. `params` and `prompts` (int, (batch, prompt_len)) default
-    to random ones made from `seed`. Returns (tokens (batch, gen), stats,
-    logits (batch, gen, Vp) float32: the logits each token was chosen from).
+    to random ones made from `seed`; `extra` (the cross-attention families'
+    "image_embeds" or "audio_frames") to `_zero_extra`'s. Returns (tokens
+    (batch, gen), stats, logits (batch, gen, Vp) float32: the logits each
+    token was chosen from).
     """
     dev = resolve_device(device)
     if params is None:
@@ -53,13 +76,17 @@ def serve(cfg, *, batch, prompt_len, gen, seed=0, use_kernels=True,
         raise ValueError(f"prompts have shape {tuple(prompts.shape)}, "
                          f"expected {(batch, prompt_len)}")
     prompts = prompts.to(dev)
+    if extra is None:
+        extra = _zero_extra(cfg, batch, dev)
+    batch_in = {"tokens": prompts,
+                "extra": {k: v.to(dev) for k, v in extra.items()}}
     caches = M.init_caches(cfg, batch, prompt_len + gen, tp=1, device=dev)
     prefill = make_prefill(cfg, use_kernels=use_kernels)
     step = make_serve_step(cfg, use_kernels=use_kernels)
 
     with torch.no_grad():
         t0 = _clock(dev)
-        logits, caches = prefill(params, caches, {"tokens": prompts})
+        logits, caches = prefill(params, caches, batch_in)
         tok = logits[:, -1].argmax(-1)[:, None]
         t_prefill = _clock(dev) - t0
 
@@ -103,7 +130,8 @@ def main():
                     help="plain PyTorch attention instead of the kernels")
     ap.add_argument("--layers", type=int, default=None,
                     help="serve this many layers (a multiple of the "
-                         "model's period) instead of the config's")
+                         "model's period; whisper: decoder layers) instead "
+                         "of the config's")
     args = ap.parse_args()
     cfg = get_config(args.arch)
     if args.smoke:

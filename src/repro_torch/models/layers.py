@@ -1,5 +1,5 @@
-"""Decoder layers: the dense subset of `repro.models.layers`, the MoE FFN,
-Mamba and RWKV6.
+"""Decoder layers: the dense subset of `repro.models.layers`, cross-attention,
+the MoE FFN, Mamba and RWKV6.
 
 Conventions
 -----------
@@ -77,7 +77,7 @@ def _mask_bias(q_pos, k_pos, causal, window):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA + RoPE + qk-norm + SWA)
+# Attention (GQA + RoPE + qk-norm + SWA + cross-attn)
 # ---------------------------------------------------------------------------
 
 
@@ -223,6 +223,32 @@ def decode_attention(p, x, cfg, *, cache, cache_index: int, use_rope=True,
     else:
         o = _attn_core(q, ck, cv, bias[:, None, :])
     return _proj_out(p, o), {"k": ck, "v": cv}
+
+
+def cross_attention(p, x, cfg, *, kv=None, cache=None):
+    """Cross-attention to a fixed source (image tokens / encoder output).
+
+    Either `kv` (source activations (B,T,D), prefill: k and v are projected
+    from it and returned as the new {k, v}) or `cache` ({k, v} precomputed,
+    decode: only q is projected) must be given. No mask and no rope; the
+    plain `_attn_core`, as in the reference, which runs no kernel here.
+    Returns (out, {k, v}); `out` is scaled by tanh(gate) where p has a
+    `gate` (llama-3.2-vision's gated cross-attention layers).
+    """
+    B, S, _ = x.shape
+    if cache is None:
+        q, k, v = _qkv(p, x, kv, cfg)
+    else:
+        q = _einsum("bsd,dhk->bshk", x, p["wq"])
+        if cfg.qk_norm:
+            q = rms_norm(q, p["qn"], cfg.norm_eps)
+        k, v = cache["k"], cache["v"]
+    bias = torch.zeros((B, S, k.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    out = _proj_out(p, _attn_core(q, k, v, bias))
+    if "gate" in p:
+        out = out * torch.tanh(p["gate"]).to(out.dtype)
+    return out, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Model assembly for the decoder families: init / forward / decode.
+"""Model assembly for every family: init / forward / decode.
 
-Port of `repro.models.model` for dense decoders, MoE, the Mamba +
-attention hybrid (Jamba) and RWKV6. Parameters keep the reference's tree:
-per-position-in-period layer dicts whose leaves carry a leading period
-axis. The reference's `lax.scan` over periods is a Python loop over that
-axis here. Caches (KV rings, Mamba conv and SSM states, RWKV shift and WKV
-states) are updated in place, so the reference's two `cache_in_carry`
-decode branches (which compute the same function) are one index write.
+Port of `repro.models.model`: dense decoders, MoE, the Mamba + attention
+hybrid (Jamba), RWKV6, the VLM (gated cross-attention every
+`cross_attn_every` layers) and whisper (an encoder over audio frames, and
+a decoder with a cross-attention sublayer in every block). Parameters keep
+the reference's tree: per-position-in-period layer dicts whose leaves
+carry a leading period axis. The reference's `lax.scan` over periods is a
+Python loop over that axis here. Caches (KV rings, Mamba conv and SSM
+states, RWKV shift and WKV states, cross-attention k and v) are updated in
+place, so the reference's two `cache_in_carry` decode branches (which
+compute the same function) are one index write.
 """
 from __future__ import annotations
 
@@ -18,23 +21,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-# the ROADMAP.md queue 1 item that ports each family the port does not
-# run yet
-_LATER = {
-    "vlm": "item 7 (VLM and whisper: cross_attention)",
-    "audio": "item 7 (VLM and whisper: the whisper encoder)",
-}
-
-
-def _require_supported(cfg: ModelConfig) -> None:
-    """Raise for the cross-attention families (VLM, whisper)."""
-    if cfg.cross_attn_every or cfg.encoder_layers:
-        later = _LATER.get(cfg.family, "item 7")
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): repro_torch runs the dense, MoE, "
-            f"hybrid (Mamba) and RWKV6 decoders so far; ROADMAP.md queue 1 "
-            f"{later} ports this family")
-
 
 # ---------------------------------------------------------------------------
 # Block structure
@@ -42,26 +28,36 @@ def _require_supported(cfg: ModelConfig) -> None:
 
 
 def period_of(cfg: ModelConfig) -> int:
-    _require_supported(cfg)
     if cfg.rwkv:
         return 1
     if cfg.attn_every > 1:
         return cfg.attn_every
+    if cfg.cross_attn_every:
+        return cfg.cross_attn_every
     if cfg.moe is not None and cfg.moe_every > 1:
         return cfg.moe_every
     return 1
 
 
 def block_specs(cfg: ModelConfig) -> list[dict]:
-    """One spec per position within a period: the mixer (attn, mamba,
-    rwkv) and the FFN (dense, moe, rwkv)."""
+    """One spec per position within a period: the mixer (attn, xattn,
+    mamba, rwkv) and the FFN (dense, moe, rwkv); whisper's decoder blocks
+    carry `cross` (a cross-attention sublayer after the self-attention)."""
     P = period_of(cfg)
     specs = []
     for pos in range(P):
         if cfg.rwkv:
             specs.append({"kind": "rwkv", "ffn": "rwkv"})
             continue
-        kind = "mamba" if cfg.attn_every > 1 and pos != P - 1 else "attn"
+        if cfg.encoder_layers:   # whisper decoder: self + cross every layer
+            specs.append({"kind": "attn", "ffn": "dense", "cross": True})
+            continue
+        if cfg.attn_every > 1:
+            kind = "attn" if pos == P - 1 else "mamba"
+        elif cfg.cross_attn_every and pos == P - 1:
+            kind = "xattn"
+        else:
+            kind = "attn"
         if cfg.moe is not None and (pos % cfg.moe_every
                                     == cfg.moe_every - 1):
             ffn = "moe"
@@ -94,7 +90,7 @@ def _dense(gen, shape, dtype, scale=0.02):
                         device=gen.device) * scale).to(dtype)
 
 
-def _attn_params(gen, cfg: ModelConfig, tp: int):
+def _attn_params(gen, cfg: ModelConfig, tp: int, *, cross=False):
     D, hd = cfg.d_model, cfg.head_dim_()
     H, K = cfg.num_heads, cfg.num_kv_heads
     Hp, Kp, Gp = cfg.padded_heads(tp)
@@ -128,6 +124,8 @@ def _attn_params(gen, cfg: ModelConfig, tp: int):
     if cfg.qk_norm:
         p["qn"] = _norm_init(gen, hd)
         p["kn"] = _norm_init(gen, hd)
+    if cross:                   # the VLM's tanh gate, 0 at init
+        p["gate"] = _zeros(gen, (), torch.float32)
     return p
 
 
@@ -216,7 +214,11 @@ def _block_params(gen, cfg: ModelConfig, spec: dict, tp: int):
     if spec["kind"] == "mamba":
         p["mamba"] = _mamba_params(gen, cfg)
     else:
-        p["attn"] = _attn_params(gen, cfg, tp)
+        p["attn"] = _attn_params(gen, cfg, tp,
+                                 cross=spec["kind"] == "xattn")
+        if spec.get("cross"):
+            p["ln_x"] = _norm_init(gen, cfg.d_model)
+            p["xattn"] = _attn_params(gen, cfg, tp)
     if spec["ffn"] == "moe":
         p["moe"] = _moe_params(gen, cfg)
     else:
@@ -255,6 +257,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, tp: int = 1) -> dict:
     params["layers"] = [
         _stack([_block_params(gen, cfg, spec, tp) for _ in range(n_periods)])
         for spec in specs]
+    if cfg.encoder_layers:      # whisper encoder stack (self-attn, dense ffn)
+        enc_spec = {"kind": "attn", "ffn": "dense"}
+        params["encoder"] = {
+            "layers": _stack([_block_params(gen, cfg, enc_spec, tp)
+                              for _ in range(cfg.encoder_layers)]),
+            "final_norm": _norm_init(gen, cfg.d_model)}
     return params
 
 
@@ -271,7 +279,7 @@ def _at(tree, i):
 
 
 def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
-                 mode="train", use_kernels=True):
+                 mode="train", extra=None, use_kernels=True):
     """One block. Returns (x, aux): the block's MoE load-balance loss, or
     None for a block without one (the reference adds a 0 there). New cache
     entries are written into `cache` in place."""
@@ -285,17 +293,26 @@ def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
         if cache is not None:
             for name, new in mst.items():
                 cache["mamba"][name].copy_(new)
-    elif mode == "decode":
-        o, _ = L.decode_attention(p["attn"], h, cfg, cache=cache["kv"],
-                                  cache_index=cache_index,
-                                  use_kernels=use_kernels)
+    elif spec["kind"] == "xattn":
+        o = _cross(p["attn"], h, cfg, cache, mode, extra)
     else:
-        kvc_in = cache["kv"] if cache is not None else None
-        o, _ = L.self_attention(p["attn"], h, cfg,
-                                causal=spec.get("causal", cfg.causal),
-                                kv_cache=kvc_in,
-                                cache_index=0 if kvc_in is not None
-                                else None, use_kernels=use_kernels)
+        use_rope = not cfg.encoder_layers     # whisper: abs pos, no rope
+        if mode == "decode":
+            o, _ = L.decode_attention(p["attn"], h, cfg, cache=cache["kv"],
+                                      cache_index=cache_index,
+                                      use_rope=use_rope,
+                                      use_kernels=use_kernels)
+        else:
+            kvc_in = cache["kv"] if cache is not None else None
+            o, _ = L.self_attention(p["attn"], h, cfg,
+                                    causal=spec.get("causal", cfg.causal),
+                                    use_rope=use_rope, kv_cache=kvc_in,
+                                    cache_index=0 if kvc_in is not None
+                                    else None, use_kernels=use_kernels)
+        if spec.get("cross"):            # whisper decoder cross-attn sublayer
+            x = x + o
+            h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
+            o = _cross(p["xattn"], h, cfg, cache, mode, extra)
     x = x + o
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec["ffn"] == "moe":
@@ -303,6 +320,20 @@ def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
     else:
         o = L.swiglu(p["ffn"], h)
     return x + o, aux
+
+
+def _cross(p, h, cfg, cache, mode, extra):
+    """Cross-attention of a block: over the `xkv` cache in decode; else
+    over extra["cross_source"], whose projected k and v go into the cache
+    when there is one (`_fit_cross_caches` gave it their shape and
+    dtype)."""
+    if mode == "decode":
+        return L.cross_attention(p, h, cfg, cache=cache["xkv"])[0]
+    o, xc = L.cross_attention(p, h, cfg, kv=extra["cross_source"])
+    if cache is not None:
+        for name, new in xc.items():
+            cache["xkv"][name].copy_(new)
+    return o
 
 
 def _apply_rwkv_block(p, x, cfg, cache, use_kernels):
@@ -325,6 +356,30 @@ def _apply_rwkv_block(p, x, cfg, cache, use_kernels):
     return x
 
 
+def _sinusoid(T, D, device, start=0):
+    """(T, D) float32 absolute positions start .. start+T-1: sin, then
+    cos, of pos / 10000^(2i/D)."""
+    pos = torch.arange(start, start + T, dtype=torch.float32,
+                       device=device)[:, None]
+    i = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / D)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def _run_encoder(params, cfg, frames, use_kernels=True):
+    """whisper's encoder over (B, T, D) frames (the conv frontend's output,
+    stubbed as in the reference): absolute positions, non-causal attention
+    blocks without rope, then the encoder's final norm."""
+    x = frames + _sinusoid(frames.shape[1], cfg.d_model,
+                           frames.device).to(frames.dtype)
+    spec = {"kind": "attn", "ffn": "dense", "causal": False}
+    enc = params["encoder"]
+    for li in range(cfg.encoder_layers):
+        x, _ = _apply_block(_at(enc["layers"], li), spec, x, cfg,
+                            mode="train", use_kernels=use_kernels)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
 def _embed(params, cfg, tokens):
     return params["embed"][tokens]
 
@@ -332,6 +387,41 @@ def _embed(params, cfg, tokens):
 def _unembed(params, cfg, x):
     head = params.get("lm_head", params["embed"])
     return L._einsum("bsd,vd->bsv", x, head)
+
+
+def _prepare_extra(params, cfg, extra, use_kernels=True):
+    """The cross-attention source: the encoder's output over
+    extra["audio_frames"] (whisper), or extra["image_embeds"] (the VLM,
+    whose vision tower is stubbed as in the reference); {} for the other
+    families."""
+    if not (cfg.encoder_layers or cfg.cross_attn_every):
+        return {}
+    key = "audio_frames" if cfg.encoder_layers else "image_embeds"
+    if key not in extra:
+        raise ValueError(f"{cfg.name} needs extra[{key!r}] (B, T, "
+                         f"{cfg.d_model}) as its cross-attention source")
+    src = extra[key]
+    if cfg.encoder_layers:
+        src = _run_encoder(params, cfg, src, use_kernels)
+    return {"cross_source": src}
+
+
+def _fit_cross_caches(params, cfg, caches, source):
+    """Give each `xkv` entry the shape and dtype of the k and v that the
+    prefill projects from `source`. The reference's prefill replaces the
+    entry with them, so a float32 model keeps float32 cross k and v under
+    a bf16 cache; the port writes them in place, into storage made to
+    match here."""
+    for i, spec in enumerate(block_specs(cfg)):
+        if not (spec.get("cross") or spec["kind"] == "xattn"):
+            continue
+        w = params["layers"][i]["xattn" if spec.get("cross") else "attn"]
+        dt = torch.promote_types(source.dtype, w["wk"].dtype)
+        xkv = caches["layers"][i]["xkv"]
+        for name, t in xkv.items():
+            shape = (t.shape[0],) + tuple(source.shape[:2]) + t.shape[3:]
+            if t.dtype != dt or t.shape != shape:
+                xkv[name] = torch.zeros(shape, dtype=dt, device=t.device)
 
 
 def _run_layers(params, cfg, x, caches, *, remat=False, **kw):
@@ -360,18 +450,27 @@ def _run_layers(params, cfg, x, caches, *, remat=False, **kw):
     return x, aux
 
 
-def forward(params, cfg: ModelConfig, tokens, *, caches=None,
+def forward(params, cfg: ModelConfig, tokens, *, extra=None, caches=None,
             use_kernels=True, remat=True):
     """Full-sequence forward (train, or prefill when caches are given).
 
     Returns (logits, aux_loss, new_caches); aux_loss is the MoE blocks'
-    load-balance loss summed over the blocks (0 without MoE). `remat`
-    recomputes each period in the backward; it applies only when autograd
-    records and no caches are given. The caches' tensors are written in
-    place; new_caches shares them and carries the advanced index.
+    load-balance loss summed over the blocks (0 without MoE). `extra`
+    holds the cross-attention families' input: "image_embeds" (B, T, D)
+    for the VLM, "audio_frames" (B, T, D) for whisper. `remat` recomputes
+    each period (not the encoder) in the backward; it applies only when
+    autograd records and no caches are given. The caches' tensors are
+    written in place (the `xkv` entries may be replaced, see
+    `_fit_cross_caches`); new_caches shares them and carries the advanced
+    index.
     """
+    extra = _prepare_extra(params, cfg, extra or {}, use_kernels)
+    if caches is not None and extra:
+        _fit_cross_caches(params, cfg, caches, extra["cross_source"])
     x = _embed(params, cfg, tokens)
-    x, aux = _run_layers(params, cfg, x, caches, mode="train",
+    if cfg.encoder_layers:                      # whisper decoder abs pos
+        x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    x, aux = _run_layers(params, cfg, x, caches, mode="train", extra=extra,
                          use_kernels=use_kernels,
                          remat=remat and caches is None
                          and torch.is_grad_enabled())
@@ -392,6 +491,9 @@ def decode_step(params, cfg: ModelConfig, token, caches, *,
     """
     index = caches["index"]
     x = _embed(params, cfg, token)
+    if cfg.encoder_layers:
+        x = x + _sinusoid(1, cfg.d_model, x.device, start=index)[0].to(
+            x.dtype)
     x, _ = _run_layers(params, cfg, x, caches, cache_index=index,
                        mode="decode", use_kernels=use_kernels)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -404,14 +506,16 @@ def decode_step(params, cfg: ModelConfig, token, caches, *,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
-                dtype=torch.bfloat16, *, device) -> dict:
+                dtype=torch.bfloat16, *, device, cross_len=None) -> dict:
     """Zeroed caches: KV rings of W = min(max_len, sliding window) slots;
-    Mamba conv states (in `dtype`) and SSM states (float32); RWKV6's shift
-    states (in `dtype`) and WKV states (float32). `index` is an int (the
-    next position to write)."""
+    cross-attention k and v (`xkv`) over T = cross_len or the config's
+    image tokens or audio frames; Mamba conv states (in `dtype`) and SSM
+    states (float32); RWKV6's shift states (in `dtype`) and WKV states
+    (float32). `index` is an int (the next position to write)."""
     specs = block_specs(cfg)
     n_periods = cfg.num_layers // len(specs)
     hd = cfg.head_dim_()
+    _, Kp, _ = cfg.padded_heads(tp)
 
     def zeros(*shape, dt=dtype):
         return torch.zeros((n_periods, batch) + shape, dtype=dt,
@@ -428,7 +532,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
             I = m.expand * D
             return {"mamba": {"conv": zeros(m.d_conv - 1, I),
                               "ssm": zeros(I, m.d_state, dt=torch.float32)}}
-        _, Kp, _ = cfg.padded_heads(tp)
-        W = min(max_len, cfg.sliding_window or max_len)
-        return {"kv": {"k": zeros(W, Kp, hd), "v": zeros(W, Kp, hd)}}
+        c = {}
+        if spec["kind"] == "attn":
+            W = min(max_len, cfg.sliding_window or max_len)
+            c["kv"] = {"k": zeros(W, Kp, hd), "v": zeros(W, Kp, hd)}
+        if spec.get("cross") or spec["kind"] == "xattn":
+            T = cross_len or cfg.num_image_tokens or cfg.num_audio_frames
+            c["xkv"] = {"k": zeros(T, Kp, hd), "v": zeros(T, Kp, hd)}
+        return c
     return {"index": 0, "layers": [one(s) for s in specs]}

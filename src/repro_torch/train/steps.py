@@ -32,13 +32,15 @@ def make_grad_fn(cfg: ModelConfig, *, use_kernels=True, remat=True,
     respect to every leaf of `params`, in the params' tree and dtypes
     (float32 when microbatches > 1).
 
-    batch: {"tokens", "labels"} (B, S) integer tensors. microbatches > 1:
-    gradient accumulation over k sequential slices of the batch in a
-    float32 accumulator, the mean of the k gradients.
+    batch: {"tokens", "labels"} (B, S) integer tensors, and "extra" for
+    the cross-attention families (see `models.model.forward`).
+    microbatches > 1: gradient accumulation over k sequential slices of
+    the batch in a float32 accumulator, the mean of the k gradients.
     """
     def value_and_grad(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         logits, aux, _ = M.forward(live, cfg, batch["tokens"],
+                                   extra=batch.get("extra"),
                                    use_kernels=use_kernels, remat=remat)
         ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         grads = torch.autograd.grad(ce + aux, tree_leaves(live))
@@ -53,8 +55,8 @@ def make_grad_fn(cfg: ModelConfig, *, use_kernels=True, remat=True,
                                              device=p.device), params)
         ms = []
         for i in range(k):
-            mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
-                  for n, x in batch.items()}
+            mb = tree_map(lambda x: x.reshape(
+                (k, x.shape[0] // k) + x.shape[1:])[i], batch)
             metrics, g = value_and_grad(params, mb)
             tree_map(lambda a, x: a.add_(x.float()), acc, g)
             ms.append(metrics)
@@ -92,6 +94,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
 def make_prefill(cfg: ModelConfig, *, use_kernels=True):
     def prefill(params, caches, batch):
         logits, _, caches = M.forward(params, cfg, batch["tokens"],
+                                      extra=batch.get("extra"),
                                       caches=caches, use_kernels=use_kernels)
         return logits[:, -1:], caches
     return prefill

@@ -407,3 +407,94 @@ def test_checkpoint_roundtrip_from_card(cuda_device, tmp_path):
                 if isinstance(b, torch.Tensor):
                     assert b.device.type == dev.type, p
                 assert raw(a) == raw(b), p
+
+
+# the cross-attention families' attention shapes: whisper's encoder is
+# non-causal over 1500 frames (11 full 128-row q-tiles and 92 rows), G = 1,
+# d = 64; llama-3.2-vision's self-attention has G = 8, d = 128 (here at
+# ragged S, causal and not)
+FLASH_XATTN = [(2, 1500, 4, 4, 64, False, None),
+               (1, 1100, 16, 2, 128, True, None),
+               (1, 333, 16, 2, 128, False, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,d,causal,win", FLASH_XATTN)
+def test_flash_attention_xattn_shapes_on_card(cuda_device, B, S, H, K, d,
+                                              causal, win, dtype):
+    q, k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+               for x in flash_inputs(5, B, S, H, K, d))
+    n = fops.flash_attention.launches
+    o = fops.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == n + 1
+    _assert_held(o, flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal=causal, window=win))
+
+
+# whisper's decode (G = 1, d = 64, 256 slots) and the VLM's (G = 8,
+# d = 128, a 4,128-slot cache), for every (q, cache) dtype pair
+@pytest.mark.parametrize("qt,ct", DTYPE_PAIRS)
+@pytest.mark.parametrize("B,W,H,K,d", [(4, 256, 20, 20, 64),
+                                       (2, 1000, 8, 8, 64),
+                                       (1, 4128, 64, 8, 128)])
+def test_decode_attention_xattn_shapes_on_card(cuda_device, B, W, H, K, d,
+                                               qt, ct):
+    q, k, v, bias = decode_inputs(6, B, W, H, K, d)
+    q = torch.from_numpy(q).to(cuda_device, getattr(torch, qt))
+    k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, ct))
+            for x in (k, v))
+    bias = torch.from_numpy(bias).to(cuda_device)
+    n = dops.decode_attention.launches
+    o = dops.decode_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == n + 1
+    assert o.dtype == q.dtype
+    _assert_held(o, decode_attention_ref(q.float(), k.float(), v.float(),
+                                         bias))
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
+def test_xattn_model_on_card(cuda_device, arch):
+    """Both cross-attention smoke families in float32 (heads of 32, a width
+    the kernels are built for), random extras and (VLM) the gate at 1: the
+    card's kernel path against the CPU's plain path, prefill of 10 tokens
+    and 4 decode steps, logits to 1e-4; the launches: whisper's encoder
+    and decoder layers flash once each, the VLM's self-attention layers;
+    one decode launch per self-attention layer a step."""
+    from repro_torch.models import model as M
+    cfg = _cfg(arch, head_dim=32)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    for i, spec in enumerate(M.block_specs(cfg)):
+        if spec["kind"] == "xattn":
+            params["layers"][i]["attn"]["gate"].fill_(1.0)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 14)))
+    key, T = (("audio_frames", cfg.num_audio_frames) if cfg.encoder_layers
+              else ("image_embeds", cfg.num_image_tokens))
+    src = torch.from_numpy(rng.standard_normal((2, T, cfg.d_model),
+                                               np.float32))
+    n_self = sum(s["kind"] == "attn" for s in M.block_specs(cfg)) * (
+        cfg.num_layers // M.period_of(cfg))
+    out = {}
+    for dev, use_kernels in (("cpu", False), (cuda_device, True)):
+        pp = _on(params, dev)
+        caches = M.init_caches(cfg, 2, 14, dtype=torch.float32, device=dev)
+        fl, dl = fops.flash_attention.launches, dops.decode_attention.launches
+        lg, _, caches = M.forward(pp, cfg, toks[:, :10].to(dev),
+                                  extra={key: src.to(dev)}, caches=caches,
+                                  use_kernels=use_kernels)
+        steps = [lg[:, -1]]
+        for t in range(10, 14):
+            lg, caches = M.decode_step(pp, cfg, toks[:, t:t + 1].to(dev),
+                                       caches, use_kernels=use_kernels)
+            steps.append(lg[:, 0])
+        out[str(dev)] = torch.stack(steps, 1)
+        launched = (fops.flash_attention.launches - fl,
+                    dops.decode_attention.launches - dl)
+        want = (n_self + cfg.encoder_layers, 4 * n_self) if use_kernels \
+            else (0, 0)
+        assert launched == want
+    np.testing.assert_allclose(to_np(out[str(cuda_device)]),
+                               to_np(out["cpu"]), atol=1e-4, rtol=0)
