@@ -32,7 +32,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               frames, G = 1, d = 64; decode over 256 slots) and at
               llama-3.2-vision-90b's (flash G = 8, d = 128, causal over
               4096; decode over 4,128 slots, also with a float32 q, the
-              route its float32 gate takes);
+              route its float32 gate takes); flash is also held at the
+              distributed phase's train shapes (h2o-danube-1.8b at
+              4 x 2048 and 4 x 512) in both dtypes;
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -103,7 +105,32 @@ order; any failure ends the run with a non-zero exit and no result line:
               tenth of the lr: no loss of the latter may exceed the
               initial weights' loss on the same batch by more than
               LOW_LR_RTOL;
-8. checkpoint -- (a) lovelock-20m in float32 through the kernel path:
+8. distributed -- the sharded train step on a world-1 NCCL group (a
+              FileStore under build/; one card is one rank): (a) h2o-danube
+              -1.8b at full width cut to 2 layers, float32, DIST_F32, on a
+              (1, 1) ("data", "model") mesh against the meshless step:
+              losses within 1e-5 relative, params within DIST_PARAM_TOL of
+              the largest |p|; then h2o-danube-1.8b whole (24 layers) in
+              bf16, DIST, on the (1, 1) mesh (state placed by
+              state_specs) and again without a mesh from the same seed and
+              batches, with the reference's test optimizer (lr DIST_LR):
+              finite losses within DIST_LOSS_RTOL, the flash kernel
+              launched as often (24 x 2 a step). (b) the same model on a
+              (1, 1, 1) ("pod", "data", "model") mesh with
+              grad_sync="compressed_pod": losses within COMPRESSED_TOL of
+              (a)'s meshed run, every ef leaf finite and some nonzero, and
+              quantized_psum_pod on the largest gradient leaf bit-equal to
+              a numpy re-enactment in float32 of the reference's math;
+              then the compressed run against its arithmetic with no mesh
+              (`_compressed_replay`): losses within LOSS_RTOL.
+              (c) lovelock-20m float32 through ElasticRunner: 12 batches,
+              a checkpoint every 4 under build/, a failure at step 6: one
+              recovery, final params within DIST_PARAM_TOL of an
+              uninterrupted run's. (d) flat_all_reduce and
+              hierarchical_all_reduce at world 1 equal their input's sum.
+              Step times (first, steady), tokens/s and peak memory of each
+              run of (a) and (b), and the meshed step's host overhead;
+9. checkpoint -- (a) lovelock-20m in float32 through the kernel path:
               4 steps of `train_loop` with a checkpoint every 2, the last
               checkpoint removed, then a fresh `train_loop(resume=True)`
               runs steps 3-4: losses within RESUME_RTOL of the straight
@@ -111,7 +138,7 @@ order; any failure ends the run with a non-zero exit and no result line:
               by the streaming checkpointer under build/ and read back
               onto the card bit for bit, with write and read GB/s and at
               most `buffers` x `chunk` bytes in flight; then deleted;
-9. result  -- print the kernels' JSON line, then the device line.
+10. result -- print the kernels' JSON line, then the device line.
 """
 from __future__ import annotations
 
@@ -226,6 +253,30 @@ BF16_LOSS_RTOL = 1e-2
 # path (chunked forward), both with the chunked form's backward: each
 # leaf's largest difference over its largest |g|
 GRAD_TOL = 1e-3
+# the distributed phase: h2o-danube-1.8b at full width and depth, bf16,
+# batch x seq tokens, `steps` steps through the sharded step on a world-1
+# NCCL group (one card is one rank; multi-rank runs are the CPU tests')
+DIST = (4, 2048, 3)                       # batch, seq, steps
+DIST_F32 = (2, 4, 512, 3)                 # layers, batch, seq, steps
+# bf16 losses, meshed vs meshless: the same kernels on the same data, the
+# mesh's collectives at world 1 are copies; a fault moves the loss by O(1)
+DIST_LOSS_RTOL = 1e-2
+# compressed vs gspmd losses: the reference's own bound, with its test's
+# optimizer, OptimizerConfig(lr=1e-3): warmup 100, so steps of lr 1e-5,
+# 2e-5, 3e-5 (tests/test_distributed.py:88-119). The reference set it at
+# smoke size, where a step moves the loss by ~0.03; here a step moves it by
+# ~0.7-0.9 and the gap grows with it: 0.0468 at seed 0, 0.0685, 0.0614 and
+# 0.0491 at seeds 1-3 (tools/dist_probe.py, PERF.md; ROADMAP.md section 3).
+# What holds the port's compressed step to the reference's arithmetic is
+# the replay gate after it. train_loop's schedule (lr 3e-4, warmup 10) is
+# tools/dist_probe.py's too
+COMPRESSED_TOL = 0.05
+DIST_LR = 1e-3
+# float32 params after the (1, 1) mesh's steps against the meshless
+# steps', over the largest |p|
+DIST_PARAM_TOL = 1e-6
+# ElasticRunner: arch, batch, seq, batches, checkpoint every, failure at
+ELASTIC = ("lovelock-20m", 8, 256, 12, 4, 6)
 DEVICE = "cuda"
 
 
@@ -474,10 +525,14 @@ def phase_kernels(torch, seed: int) -> list:
                 wh.head_dim, False, None)
     vlm_flash = (BATCH, VLM_PROMPT, vlm.num_heads, vlm.num_kv_heads,
                  vlm.head_dim, True, None)
+    # the distributed phase's train steps: h2o at 4 x 2048 (bf16; the
+    # window spans the sequence) and its float32 check's 4 x 512
+    train_flash = [(DIST[0], DIST[1], H, K, d, True, window),
+                   (DIST_F32[1], DIST_F32[2], H, K, d, True, window)]
     for dt in (torch.float32, torch.bfloat16):
         extra = FLASH_BF16_DIMS if dt == torch.bfloat16 else []
-        for case in FLASH_SWEEP + extra + [wh_flash, vlm_flash, hy_flash,
-                                           h2o_flash]:
+        for case in FLASH_SWEEP + extra + train_flash + [
+                wh_flash, vlm_flash, hy_flash, h2o_flash]:
             B, S, Hc, Kc, dc, causal, win = case
             q = _randn(torch, gen, (B, S, Hc, dc), dt)
             k = _randn(torch, gen, (B, S, Kc, dc), dt)
@@ -1677,6 +1732,374 @@ def phase_train(torch, seed: int, card: str) -> tuple:
     return launches, out
 
 
+def _dist_run(torch, cfg, seed, batches, mesh=None, grad_sync="gspmd",
+              keep=False, profile=False, oc=None, use_kernels=True,
+              make_step=None) -> dict:
+    """Train `cfg` from random weights made from `seed` on `batches`: on
+    `mesh` (state placed by state_specs; replicated over pods for the
+    compressed sync) or without one; `oc` the optimizer (default: the
+    reference's test's, lr DIST_LR); `use_kernels` False takes the plain
+    paths; `make_step(cfg, oc)`, where given, makes the step in place of
+    make_train_step. Returns the losses, each step's
+    seconds (host clock around a synchronised step), the steady mean (steps
+    2 on), tokens/s, the memory held once the state is placed and the peak
+    over the steps (GB), flash launches, with `profile` one more step under
+    torch.profiler (device busy ms, events, idle share against the steady
+    step, top device ops), and with `keep` the final state."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.sharding.rules import ShardingRules, place, state_specs
+    from repro_torch.train.steps import make_train_step
+    compressed = grad_sync == "compressed_pod"
+    oc = oc or OptimizerConfig(lr=DIST_LR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    state = adamw_init(params, oc, with_ef=compressed)
+    del params
+    rules = None
+    if mesh is not None:
+        rules = ShardingRules(mesh)
+        state = place(state, state_specs(state, mesh,
+                                         fsdp_pod=not compressed), mesh)
+    step = (make_step(cfg, oc) if make_step else
+            make_train_step(cfg, oc, rules, grad_sync=grad_sync,
+                            use_kernels=use_kernels))
+    placed_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    fops.flash_attention.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    n = fops.flash_attention.launches
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    B, S = batches[0]["tokens"].shape
+    out = {"losses": losses, "step_s": step_s, "first_step_s": step_s[0],
+           "steady_step_s": steady, "tokens_per_s": B * S / steady,
+           "placed_memory_gb": placed_gb,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "flash_launches": n}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batches[-1])
+            torch.cuda.synchronize()
+        spans, by_name = _device_spans(torch, prof), {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name] = (by_name.get(ev.name, 0)
+                                    + ev.time_range.elapsed_us())
+        busy = _busy_us(spans) / 1e3 if spans else None
+        out["profile"] = {
+            "device_busy_ms": busy, "device_events": len(spans),
+            "idle_share": None if busy is None
+            else 1 - busy / (steady * 1e3),
+            "top_device_ms": {k: us / 1e3 for k, us in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:TOP_OPS]}}
+    if keep:
+        out["state"] = state
+    return out
+
+
+def _local(tree):
+    """Each DTensor leaf's local tensor (the whole leaf at world 1)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                    tree)
+
+
+def _bf16_round(np, a):
+    """float32 values rounded to bfloat16 (nearest even), as float32."""
+    b = a.view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> 16) & 1)) & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+def _quantized_psum_np(np, x, ef):
+    """The reference's quantized psum (src/repro/core/collectives.py:43-53)
+    over one pod, in numpy float32: (out, new_ef) of a bf16 leaf, both
+    rounded to bf16 and returned as float32."""
+    f32 = np.float32
+    val = x + ef
+    scale = np.maximum(f32(np.abs(val).max()) / f32(127.0), f32(1e-12))
+    q = np.clip(np.round(val / scale), -127, 127).astype(f32)
+    new_ef = _bf16_round(np, val - q * scale)
+    summed = q.astype(np.int16).astype(f32)
+    return _bf16_round(np, summed * scale / f32(1)), new_ef
+
+
+def _compressed_replay(cfg, oc):
+    """The compressed step's arithmetic with no mesh and no collective:
+    the meshless gradients, each leaf quantized to int8 with error
+    feedback by the reference's formula (src/repro/core/collectives.py:
+    43-53; one pod, so the wire sum is the leaf's own codes and the mean
+    divides by 1), the ef written, then AdamW. Divisors are device
+    tensors, as IEEE division (numpy's) is."""
+    import torch
+    from repro_torch.optim import adamw_update, cosine_schedule
+    from repro_torch.train.steps import make_grad_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    grad_fn = make_grad_fn(cfg)
+    lr_fn = cosine_schedule(oc.lr, oc.warmup, oc.total_steps)
+
+    def step(state, batch):
+        metrics, grads = grad_fn(state.params, batch)
+        synced = []
+        for g, e in zip(tree_leaves(grads), tree_leaves(state.ef)):
+            val = g.float() + e.float()
+            c127 = torch.full((), 127.0, device=val.device)
+            scale = torch.clamp(val.abs().max() / c127, min=1e-12)
+            q = torch.clamp(torch.round(val / scale), -127, 127)
+            e.copy_((val - q * scale).to(e.dtype))
+            synced.append((q * scale).to(g.dtype))
+        del grads
+        return adamw_update(state, tree_unflatten(state.params, synced), oc,
+                            lr_fn), metrics
+    return step
+
+
+def phase_distributed(torch, seed: int, card: str) -> tuple:
+    """The sharded train step, the compressed cross-pod sync, elastic
+    recovery and the all-reduce schedules on a world-1 NCCL group; returns
+    (flash launches by path, the distributed block of the result line)."""
+    import shutil
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.collectives import (flat_all_reduce,
+                                              hierarchical_all_reduce,
+                                              quantized_psum_pod)
+    from repro_torch.core.elastic import ElasticRunner
+    from repro_torch.core.streaming_checkpoint import StreamingCheckpointer
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.sharding.rules import gather
+    from repro_torch.train.steps import make_grad_fn, make_train_step
+    from repro_torch.tree import tree_leaves
+    root = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(root / "store"), 1), rank=0, world_size=1)
+    launches, out = {}, {}
+    try:
+        mesh2 = make_host_mesh(1, 1)
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+
+        # (a) float32, 2 layers: the (1, 1) mesh against no mesh
+        layers, B, S, steps = DIST_F32
+        cfg = _config(ARCH, num_layers=layers, param_dtype="float32",
+                      compute_dtype="float32")
+        batches = [_device_batch(torch, cfg, B, S, i, seed)
+                   for i in range(steps)]
+        f32 = {m: _dist_run(torch, cfg, seed, batches, mesh, keep=True)
+               for m, mesh in (("mesh", mesh2), ("none", None))}
+        rel = max(_rel(a, b) for a, b in zip(f32["mesh"]["losses"],
+                                             f32["none"]["losses"]))
+        got = tree_leaves(gather(f32["mesh"]["state"].params))
+        want = tree_leaves(f32["none"]["state"].params)
+        top = max(float(p.abs().max()) for p in want)
+        perr = max(float((a - b).abs().max()) for a, b in zip(got, want)) \
+            / top
+        print(f"  {ARCH} {layers} layers float32 {B}x{S}, {steps} steps: "
+              f"(1, 1) mesh losses {f32['mesh']['losses']}, no mesh "
+              f"{f32['none']['losses']} ({rel:.3e} relative, tol "
+              f"{LOSS_RTOL}); params {perr:.3e} of the largest |p| (tol "
+              f"{DIST_PARAM_TOL}); flash launches "
+              f"{f32['mesh']['flash_launches']} / "
+              f"{f32['none']['flash_launches']}")
+        if not (rel <= LOSS_RTOL and perr <= DIST_PARAM_TOL):
+            _fail(f"{ARCH} float32 on a (1, 1) mesh: losses {rel} relative, "
+                  f"params {perr} off the meshless run")
+        if f32["mesh"]["flash_launches"] != f32["none"]["flash_launches"]:
+            _fail("float32 mesh run: flash launched "
+                  f"{f32['mesh']['flash_launches']} times, meshless "
+                  f"{f32['none']['flash_launches']}")
+        out[f"{ARCH} {layers} layers float32"] = {
+            "batch": B, "seq": S, "losses_mesh": f32["mesh"]["losses"],
+            "losses_none": f32["none"]["losses"], "loss_rel_err": rel,
+            "param_err": perr}
+        del f32, got, want, batches
+
+        # (a) bf16, all 24 layers: the (1, 1) mesh, then no mesh
+        B, S, steps = DIST
+        cfg = _h2o()
+        batches = [_device_batch(torch, cfg, B, S, i, seed)
+                   for i in range(steps)]
+        runs = {}
+        for name, mesh, sync in (("gspmd (1, 1) mesh", mesh2, "gspmd"),
+                                 ("no mesh", None, "gspmd"),
+                                 ("compressed_pod (1, 1, 1) mesh", mesh3,
+                                  "compressed_pod")):
+            r = _dist_run(torch, cfg, seed, batches, mesh, sync,
+                          keep=sync == "compressed_pod",
+                          profile=sync == "gspmd")
+            runs[name] = r
+            want = cfg.num_layers * 2 * steps
+            print(f"  {ARCH} bf16 {B}x{S}, {steps} steps, {name} on {card}: "
+                  f"losses {r['losses']}, step s {r['step_s']} (first "
+                  f"{r['first_step_s']:.3f}, steady "
+                  f"{r['steady_step_s']:.3f} = {r['tokens_per_s']:.1f} "
+                  f"tok/s), memory {r['placed_memory_gb']:.2f} GB placed, "
+                  f"{r['peak_memory_gb']:.2f} GB peak over the steps "
+                  f"({r['peak_reserved_gb']:.2f} GB reserved), flash "
+                  f"launches {r['flash_launches']} (expected {want})")
+            if "profile" in r:
+                pr = r["profile"]
+                print(f"    one more step under torch.profiler: device busy "
+                      f"{_fmt(pr['device_busy_ms'])} ms over "
+                      f"{pr['device_events']} events, idle share "
+                      f"{pr['idle_share']} of the steady step; top device "
+                      f"ms {json.dumps(pr['top_device_ms'])}")
+            if not all(math.isfinite(x) for x in r["losses"]):
+                _fail(f"{ARCH} {name}: non-finite loss {r['losses']}")
+            if r["flash_launches"] != want:
+                _fail(f"{ARCH} {name}: flash launched {r['flash_launches']}"
+                      f", expected {want}")
+            launches[f"distributed {ARCH} {name}"] = r["flash_launches"]
+        meshed, plain = runs["gspmd (1, 1) mesh"], runs["no mesh"]
+        comp = runs.pop("compressed_pod (1, 1, 1) mesh")
+        rel = max(_rel(a, b) for a, b in zip(meshed["losses"],
+                                             plain["losses"]))
+        gap = max(abs(a - b) for a, b in zip(comp["losses"],
+                                             meshed["losses"]))
+        # the fastest steady step of each: one slow step (host noise) moves
+        # a mean of two
+        overhead = min(meshed["step_s"][1:]) - min(plain["step_s"][1:])
+        print(f"  meshed vs meshless losses {rel:.3e} relative (tol "
+              f"{DIST_LOSS_RTOL}); compressed vs meshed gspmd {gap:.4f} "
+              f"(tol {COMPRESSED_TOL}); the mesh's host overhead "
+              f"{overhead:+.3f} s a step (fastest steady steps)")
+        if not rel <= DIST_LOSS_RTOL:
+            _fail(f"{ARCH} bf16: meshed losses {rel} relative off meshless")
+        if not gap <= COMPRESSED_TOL:
+            _fail(f"{ARCH} bf16: compressed losses {gap} off gspmd")
+        # (b) the compressed run's ef, and the sync on its largest leaf
+        state = comp.pop("state")
+        efs = tree_leaves(_local(state.ef))
+        ef_finite = all(bool(torch.isfinite(e).all()) for e in efs)
+        ef_max = max(float(e.abs().max()) for e in efs)
+        # the run's params and ef, on the host, for the replay below
+        held = {name: [t.cpu() for t in tree_leaves(_local(tree))]
+                for name, tree in (("params", state.params),
+                                   ("ef", state.ef))}
+        params = _local(state.params)
+        _, grads = make_grad_fn(cfg)(params, batches[0])
+        i = max(range(len(efs)), key=lambda j: efs[j].numel())
+        g, ef = tree_leaves(grads)[i], efs[i]
+        del grads, state, params
+        o, ne = quantized_psum_pod(g, ef, mesh3)
+        want_o, want_ef = _quantized_psum_np(np, g.float().cpu().numpy(),
+                                             ef.float().cpu().numpy())
+        bits = (np.array_equal(o.float().cpu().numpy(), want_o)
+                and np.array_equal(ne.float().cpu().numpy(), want_ef))
+        print(f"  compressed run: ef finite {ef_finite}, largest |ef| "
+              f"{ef_max:.3e}; quantized_psum_pod on a {tuple(g.shape)} "
+              f"{g.dtype} gradient leaf bit-equal to numpy: {bits}")
+        if not (ef_finite and ef_max > 0):
+            _fail(f"compressed run: ef finite {ef_finite}, max {ef_max}")
+        if not bits:
+            _fail("quantized_psum_pod differs from the numpy re-enactment")
+        del g, ef, o, ne
+        # (b) the compressed run against its arithmetic with no mesh: the
+        # same losses. The gradients under the mesh and without it agree to
+        # float32 rounding, and an entry that rounding moves across a
+        # quantization step gets another int8 code and so another update:
+        # params and ef are read, not gated
+        replay = _dist_run(torch, cfg, seed, batches, None, "compressed_pod",
+                           keep=True, make_step=_compressed_replay)
+        rs = replay.pop("state")
+        rel_r = max(_rel(a, b) for a, b in zip(replay["losses"],
+                                               comp["losses"]))
+        errs = {}
+        for name, tree in (("params", rs.params), ("ef", rs.ef)):
+            want = tree_leaves(tree)
+            top = max(float(t.abs().max()) for t in want)
+            errs[name] = max(float((a.to(DEVICE).float() - b.float()).abs()
+                                   .max()) for a, b in zip(held[name], want)
+                             ) / top
+        print(f"  the compressed run against its arithmetic with no mesh: "
+              f"losses {replay['losses']} ({rel_r:.3e} relative, tol "
+              f"{LOSS_RTOL}); params {errs['params']:.3e} and ef "
+              f"{errs['ef']:.3e} of their largest |x| (read)")
+        if not rel_r <= LOSS_RTOL:
+            _fail(f"compressed run off its replay: losses {rel_r} relative")
+        del held, rs, replay
+        torch.cuda.empty_cache()
+        out[f"{ARCH} bf16"] = {
+            "batch": B, "seq": S, "dtype": "bfloat16",
+            **{name: r for name, r in runs.items()},
+            "compressed_pod (1, 1, 1) mesh": comp,
+            "loss_rel_err": rel, "compressed_gap": gap,
+            "replay_loss_rel_err": rel_r, "replay_param_err": errs["params"],
+            "replay_ef_err": errs["ef"],
+            "mesh_overhead_s": overhead, "ef_max": ef_max,
+            "sync_leaf_shape": list(want_o.shape), "sync_bit_equal": bits}
+        del runs, batches
+        torch.cuda.empty_cache()
+
+        # (c) ElasticRunner: a failure at step `fail`
+        arch, B, S, n, every, fail = ELASTIC
+        cfg = _config(arch, param_dtype="float32", compute_dtype="float32")
+        oc = OptimizerConfig(warmup=10, total_steps=n)
+        batches = [_device_batch(torch, cfg, B, S, i, seed) for i in range(n)]
+        finals = {}
+        for name, fail_at in (("failed", {fail: 1}), ("straight", None)):
+            state = adamw_init(M.init_params(
+                torch.Generator(DEVICE).manual_seed(seed), cfg), oc)
+            ck = StreamingCheckpointer(root / name)
+            ck.save(0, state)
+            step = make_train_step(cfg, oc)
+            runner = ElasticRunner(make_step=lambda mesh: step,
+                                   init_state=state, checkpointer=ck,
+                                   ckpt_every=every)
+            finals[name] = (runner.run(batches, fail_at=fail_at), runner)
+        (a, ra), (b, rb) = finals["failed"], finals["straight"]
+        top = max(float(p.abs().max()) for p in tree_leaves(b.params))
+        perr = max(float((x - y).abs().max()) for x, y in
+                   zip(tree_leaves(a.params), tree_leaves(b.params))) / top
+        print(f"  {arch} float32 {B}x{S} through ElasticRunner: {n} batches, "
+              f"a checkpoint every {every}, a failure at step {fail}: "
+              f"{ra.recoveries} recovery, {ra.steps_done} steps run; final "
+              f"params {perr:.3e} of the largest |p| off an uninterrupted "
+              f"run's (tol {DIST_PARAM_TOL})")
+        if not (ra.recoveries == 1 and rb.recoveries == 0 and a.step == n
+                and perr <= DIST_PARAM_TOL):
+            _fail(f"elastic recovery: {ra.recoveries} recoveries, step "
+                  f"{a.step}, params {perr} off")
+        out[f"{arch} elastic"] = {"recoveries": ra.recoveries,
+                                  "steps_done": ra.steps_done,
+                                  "param_err": perr}
+        del finals, a, b, batches
+
+        # (d) the all-reduce schedules at world 1
+        x = torch.randn((1, 1 << 20), generator=torch.Generator(
+            DEVICE).manual_seed(seed), device=DEVICE)
+        flat = flat_all_reduce(x, mesh3)
+        hier = hierarchical_all_reduce(x, mesh3)
+        same = torch.equal(flat, x) and torch.equal(hier, x)
+        print(f"  flat_all_reduce and hierarchical_all_reduce of {tuple(x.shape)}"
+              f" at world 1 equal the sum: {same}")
+        if not same:
+            _fail("an all-reduce schedule differs from its input's sum")
+        out["all_reduce_world1"] = same
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, out
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -1735,6 +2158,8 @@ def main() -> int:
     xa_launches, xattn_stats = phase_serve_xattn(torch, args.seed, card)
     print("== train")
     train_launches, train_stats = phase_train(torch, args.seed, card)
+    print("== distributed")
+    dist_launches, dist_stats = phase_distributed(torch, args.seed, card)
     print("== checkpoint")
     ckpt_stats = phase_checkpoint(torch, args.seed, card)
     hy_path = f"serve {HYBRID} ({HY_LAYERS} layers)"
@@ -1748,6 +2173,7 @@ def main() -> int:
     by_path["wkv6"] = {}
     for path, n in train_launches.items():
         by_path["wkv6" if RWKV in path else "flash_attention"][path] = n
+    by_path["flash_attention"].update(dist_launches)
     for k in kernels:
         # each main path's own count, reset to 0 just before its run and
         # read just after; `launches` is the first such path's
@@ -1757,7 +2183,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "card": card,
                       "serve": serve_stats, "serve_hybrid": hybrid_stats,
                       "serve_xattn": xattn_stats,
-                      "train": train_stats, "checkpoint": ckpt_stats}))
+                      "train": train_stats, "distributed": dist_stats,
+                      "checkpoint": ckpt_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,14 @@
 """PyTorch / CUDA port of the `repro` model stack: the serve and train
 paths of every model family (dense decoders, MoE, the Mamba + attention
 hybrid, RWKV6, the cross-attention VLM and whisper's encoder-decoder),
-and the streaming checkpointer.
+the streaming checkpointer, and sharded training over meshes of a
+`torch.distributed` process group.
 
 The package mirrors `repro`: `configs/`, `models/`, `train/steps.py`,
-`optim/`, `data/`, `core/elastic.py`, `launch/{serve,train}.py` and
-`kernels/<name>/{ops.py, ref.py, csrc/*.cu}`. It imports `torch` and never
+`optim/`, `data/`, `sharding/rules.py`,
+`core/{collectives,elastic,streaming_checkpoint}.py`,
+`launch/{mesh,serve,train}.py` and `kernels/<name>/{ops.py, ref.py,
+csrc/*.cu}`. It imports `torch` and never
 `jax` or `repro`.
 
 Entry points run on the card unless the caller passes `device="cpu"`;

@@ -44,15 +44,10 @@ def caches_from_numpy(tree, device="cpu"):
 
 
 def train_state_from_numpy(state, device="cpu"):
-    """A reference TrainState (step, params, m, v, master[, ef], leaves as
+    """A reference TrainState (step, params, m, v, master, ef, leaves as
     numpy) -> the port's `TrainState`; int8 moments keep their {"q",
-    "scale"} leaves. The error-feedback buffer `ef` of the compressed
-    cross-pod sync has no counterpart yet and must be None."""
-    if getattr(state, "ef", None) is not None:
-        raise NotImplementedError("the error-feedback state `ef` belongs to "
-                                  "the compressed cross-pod sync, ROADMAP.md "
-                                  "queue 1 item 9")
+    "scale"} leaves; `master` and `ef` may be None."""
     return TrainState(
         int(np.asarray(state.step)),
         *(params_from_numpy(getattr(state, f), device)
-          for f in ("params", "m", "v", "master")))
+          for f in ("params", "m", "v", "master", "ef")))

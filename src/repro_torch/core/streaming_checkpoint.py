@@ -25,6 +25,12 @@ list indices and NamedTuple field names joined by "/", None leaves absent.
 dtypes are numpy names ("float32", "bfloat16", ...); bfloat16 is stored as
 its 16-bit patterns. A Python int leaf (the `TrainState` step) is stored
 as a 0-d int32 array and restored as an int.
+
+Under a mesh the leaves are DTensors and the checkpoint holds their global
+tensors, in the same format: every rank takes part in gathering a leaf,
+rank 0 alone writes it, and all ranks meet after the commit. Restore reads
+the global tensor on every rank and keeps the rank's shard, in the
+placements of the `like` leaf.
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ import threading
 from typing import Any, Iterator, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 Pytree = Any
 
@@ -145,6 +153,8 @@ def _unflatten(like: Pytree, leaves: Iterator) -> Pytree:
 
 
 def _as_tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, DTensor):
+        return leaf.detach().full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
     if isinstance(leaf, int) and not isinstance(leaf, bool):
@@ -175,9 +185,18 @@ class StreamingCheckpointer:
     # -------------------------------------------------- save
 
     def save(self, step: int, tree: Pytree) -> pathlib.Path:
+        """Write `tree` as step `step`. A tree of DTensors is a collective:
+        every rank of the process group calls it; rank 0 writes."""
         self.metrics = CkptMetrics()
         tmp = self.dir / f".tmp_step_{step:08d}"
         final = self.dir / f"step_{step:08d}"
+        sharded = any(isinstance(x, DTensor) for _, x in _leaf_paths(tree))
+        if sharded and dist.get_rank() != 0:
+            for _, leaf in _leaf_paths(tree):   # the writer's gathers
+                if isinstance(leaf, DTensor):
+                    leaf.full_tensor()
+            dist.barrier()                       # after its commit
+            return final
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
@@ -219,6 +238,8 @@ class StreamingCheckpointer:
             shutil.rmtree(final)
         os.replace(tmp, final)                    # atomic commit
         self._gc()
+        if sharded:
+            dist.barrier()
         return final
 
     def _rows_per_chunk(self, leaf: torch.Tensor) -> int:
@@ -252,8 +273,10 @@ class StreamingCheckpointer:
 
         Each tensor leaf is allocated anew on the device of `like`'s leaf,
         with the checkpoint's dtype and shape, and filled one chunk at a
-        time; an int leaf of `like` comes back as an int. Raises OSError
-        when a chunk's sha256 does not match (with `verify`).
+        time; where `like`'s leaf is a DTensor, the rank keeps its shard in
+        that leaf's placements. An int leaf of `like` comes back as an int.
+        Raises OSError when a chunk's sha256 does not match (with
+        `verify`).
         """
         if step is None:
             step = self.latest_step()
@@ -282,6 +305,9 @@ class StreamingCheckpointer:
                         dst[ch["offset"]:ch["offset"] + len(buf)].copy_(
                             torch.frombuffer(bytearray(buf),
                                              dtype=torch.uint8))
+            if isinstance(leaf, DTensor):
+                val = distribute_tensor(val, leaf.device_mesh,
+                                        leaf.placements, src_data_rank=None)
             leaves.append(val if isinstance(leaf, torch.Tensor)
                           else int(val))
         return _unflatten(like, iter(leaves))

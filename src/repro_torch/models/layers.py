@@ -15,6 +15,10 @@ Conventions
   CUDA kernels (their plain versions for CPU tensors); `False` selects the
   reference's plain paths. The MoE dispatch and the Mamba scan are plain
   PyTorch on both, as they are plain jnp in the reference.
+* `rules` is an optional `ShardingRules`; `rules.cs(x, logical)`
+  redistributes an activation at the reference's constraint points. Under
+  a mesh the tensors are DTensors, and an attention kernel runs on each
+  rank's shard (`_per_shard`).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
@@ -132,22 +137,86 @@ def _attn_core(q, k, v, bias):
     return _einsum("bkgst,btkd->bskgd", w, v).reshape(B, Sq, Hq, dh)
 
 
-def _qkv(p, x, src, cfg):
+# (row dim, head dim) of a kernel operand, None where it has none
+_BSHD = (0, 2)          # attention q, k, v, caches: (B, S, H, d)
+_BHSD = (0, 1)          # wkv6 r, k, v, logw, out, state: (B, H, S, d)
+
+
+def _per_shard(fn, operands, dims, out_dims=None):
+    """fn(*operands) on plain tensors; where operands[0] is a DTensor, on
+    each rank's shard. An operand's `dims` entry names its (row, head)
+    dims: rows are split over the mesh's pod / data axes and heads over
+    "model", where every operand's dims divide. Attention and the WKV6
+    recurrence are independent per row and per head, so the shards'
+    outputs, placed by `out_dims` (each output's dims; by default fn
+    returns one tensor placed as operands[0]), are the outputs' shards.
+    The kernels take plain tensors, so this keeps them on the mesh's
+    path.
+
+    This is `torch.distributed.tensor.experimental.local_map` with its
+    placements computed here, for two reasons: they depend on which axes
+    divide the operands' shapes, known only at the call; and local_map
+    hands a plain-tensor operand (the decode bias) to `fn` whole, where it
+    must be split with q's rows."""
+    if not isinstance(operands[0], DTensor):
+        return fn(*operands)
+    mesh = operands[0].device_mesh
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.mesh.shape))
+    rows = [n for n in names if n in ("pod", "data")]
+    nrows = math.prod(sizes[n] for n in rows)
+    pairs = list(zip(operands, dims))
+    split_rows = all(t.shape[r] % nrows == 0 for t, (r, _) in pairs
+                     if r is not None)
+    split_heads = "model" in names and all(
+        t.shape[h] % sizes["model"] == 0 for t, (_, h) in pairs
+        if h is not None)
+
+    def placements(d, grad=False):
+        """An operand's placements; with `grad`, its gradient's: partial
+        sums over the axes that split the other operands and not it."""
+        row, head = d
+        out = []
+        for n in names:
+            split, dim = ((split_rows, row) if n in rows else
+                          (split_heads, head) if n == "model" else
+                          (False, None))
+            out.append(Replicate() if not split else
+                       Shard(dim) if dim is not None else
+                       Partial() if grad else Replicate())
+        return tuple(out)
+    ins = [(t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim)).redistribute(mesh, placements(d))
+        for t, d in pairs]
+    out = fn(*(t.to_local(grad_placements=placements(d, grad=True))
+               for t, d in zip(ins, dims)))
+    if out_dims is None:
+        return DTensor.from_local(out, mesh, placements(dims[0]))
+    return tuple(DTensor.from_local(o, mesh, placements(d))
+                 for o, d in zip(out, out_dims))
+
+
+def _qkv(p, x, src, cfg, rules=None):
     q = _einsum("bsd,dhk->bshk", x, p["wq"])
     k = _einsum("bsd,dhk->bshk", src, p["wk"])
     v = _einsum("bsd,dhk->bshk", src, p["wv"])
+    if rules is not None:
+        q, k, v = (rules.cs(t, "act_bshd") for t in (q, k, v))
     if cfg.qk_norm:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
     return q, k, v
 
 
-def _proj_out(p, o):
-    return _einsum("bshk,hkd->bsd", o, p["wo"])
+def _proj_out(p, o, rules=None):
+    out = _einsum("bshk,hkd->bsd", o, p["wo"])
+    if rules is not None:
+        out = rules.cs(out, "act_bsd")
+    return out
 
 
-def self_attention(p, x, cfg, *, causal=None, use_rope=True, kv_cache=None,
-                   cache_index=None, use_kernels=True):
+def self_attention(p, x, cfg, rules=None, *, causal=None, use_rope=True,
+                   kv_cache=None, cache_index=None, use_kernels=True):
     """Self-attention over a full sequence (prefill).
 
     p: {wq (D,H',hd), wk/wv (D,K',hd), wo (H',hd,D), [qn, kn (hd,)]}
@@ -157,7 +226,7 @@ def self_attention(p, x, cfg, *, causal=None, use_rope=True, kv_cache=None,
     """
     causal = cfg.causal if causal is None else causal
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, x, cfg)
+    q, k, v = _qkv(p, x, x, cfg, rules)
     start = 0 if cache_index is None else cache_index
     positions = (start + torch.arange(S, dtype=torch.int32, device=x.device)
                  )[None, :].expand(B, S)
@@ -179,20 +248,20 @@ def self_attention(p, x, cfg, *, causal=None, use_rope=True, kv_cache=None,
             cv[:, widx] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
     if use_kernels:
-        o = fops.flash_attention(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal=causal,
-                                 window=cfg.sliding_window)
+        o = _per_shard(lambda q, k, v: fops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=cfg.sliding_window), (q, k, v), (_BSHD,) * 3)
     elif getattr(cfg, "attn_block", None):
         o = _attn_core_chunked(q, k, v, positions, positions, causal,
                                cfg.sliding_window, block=cfg.attn_block)
     else:
         bias = _mask_bias(positions, positions, causal, cfg.sliding_window)
         o = _attn_core(q, k, v, bias)
-    return _proj_out(p, o), new_cache
+    return _proj_out(p, o, rules), new_cache
 
 
-def decode_attention(p, x, cfg, *, cache, cache_index: int, use_rope=True,
-                     use_kernels=True):
+def decode_attention(p, x, cfg, rules=None, *, cache, cache_index: int,
+                     use_rope=True, use_kernels=True):
     """Single-token (Sq=1) self-attention over a KV cache (ring for SWA).
 
     Writes the new K/V into `cache` in place at slot cache_index % W.
@@ -200,7 +269,7 @@ def decode_attention(p, x, cfg, *, cache, cache_index: int, use_rope=True,
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode_attention takes one token, got {S}")
-    q, k, v = _qkv(p, x, x, cfg)
+    q, k, v = _qkv(p, x, x, cfg, rules)
     pos = torch.full((B, 1), cache_index, dtype=torch.int32, device=x.device)
     if use_rope:
         q = rope(q, pos, cfg.rope_theta)
@@ -219,13 +288,15 @@ def decode_attention(p, x, cfg, *, cache, cache_index: int, use_rope=True,
     bias = torch.full((B, W), NEG_BIG, dtype=torch.float32,
                       device=x.device).masked_fill_(valid, 0.0)
     if use_kernels:
-        o = dops.decode_attention(q.contiguous(), ck, cv, bias)
+        o = _per_shard(lambda q, ck, cv, bias: dops.decode_attention(
+            q.contiguous(), ck, cv, bias), (q, ck, cv, bias),
+            (_BSHD, _BSHD, _BSHD, (0, None)))
     else:
         o = _attn_core(q, ck, cv, bias[:, None, :])
-    return _proj_out(p, o), {"k": ck, "v": cv}
+    return _proj_out(p, o, rules), {"k": ck, "v": cv}
 
 
-def cross_attention(p, x, cfg, *, kv=None, cache=None):
+def cross_attention(p, x, cfg, rules=None, *, kv=None, cache=None):
     """Cross-attention to a fixed source (image tokens / encoder output).
 
     Either `kv` (source activations (B,T,D), prefill: k and v are projected
@@ -237,15 +308,17 @@ def cross_attention(p, x, cfg, *, kv=None, cache=None):
     """
     B, S, _ = x.shape
     if cache is None:
-        q, k, v = _qkv(p, x, kv, cfg)
+        q, k, v = _qkv(p, x, kv, cfg, rules)
     else:
         q = _einsum("bsd,dhk->bshk", x, p["wq"])
         if cfg.qk_norm:
             q = rms_norm(q, p["qn"], cfg.norm_eps)
         k, v = cache["k"], cache["v"]
+    if rules is not None:
+        q = rules.cs(q, "act_bshd")
     bias = torch.zeros((B, S, k.shape[1]), dtype=torch.float32,
                        device=x.device)
-    out = _proj_out(p, _attn_core(q, k, v, bias))
+    out = _proj_out(p, _attn_core(q, k, v, bias), rules)
     if "gate" in p:
         out = out * torch.tanh(p["gate"]).to(out.dtype)
     return out, {"k": k, "v": v}
@@ -256,10 +329,13 @@ def cross_attention(p, x, cfg, *, kv=None, cache=None):
 # ---------------------------------------------------------------------------
 
 
-def swiglu(p, x):
+def swiglu(p, x, rules=None):
     g = _einsum("bsd,df->bsf", x, p["w_gate"])
     u = _einsum("bsd,df->bsf", x, p["w_up"])
-    return _einsum("bsf,fd->bsd", F.silu(g) * u, p["w_down"])
+    h = F.silu(g) * u
+    if rules is not None:
+        h = rules.cs(h, "act_bsf")
+    return _einsum("bsf,fd->bsd", h, p["w_down"])
 
 
 def _moe_route(p, xt, moe_cfg):
@@ -294,13 +370,19 @@ def _moe_aux(expert_ids, probs, moe_cfg):
     return E * torch.sum(f * pm) * moe_cfg.aux_loss_weight
 
 
-def _expert_ffn(p, xe):
+def _expert_ffn(p, xe, rules=None):
     g = _einsum("ecd,edf->ecf", xe, p["w_gate"])
     u = _einsum("ecd,edf->ecf", xe, p["w_up"])
-    return _einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"])
+    h = F.silu(g) * u
+    if rules is not None:
+        h = rules.cs(h, "moe_ecf")
+    ye = _einsum("ecf,efd->ecd", h, p["w_down"])
+    if rules is not None:
+        ye = rules.cs(ye, "moe_ecd")
+    return ye
 
 
-def moe_ffn(p, x, moe_cfg):
+def moe_ffn(p, x, moe_cfg, rules=None):
     """Token-choice top-k MoE.
 
     p: {router (D,E) float32, w_gate/w_up (E,D,F), w_down (E,F,D),
@@ -322,7 +404,10 @@ def moe_ffn(p, x, moe_cfg):
         xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
         xe.index_add_(0, slot.reshape(-1),
                       xt[:, None, :].expand(N, K, D).reshape(-1, D))
-        ye = _expert_ffn(p, xe[:E * C].reshape(E, C, D))
+        xe = xe[:E * C].reshape(E, C, D)
+        if rules is not None:
+            xe = rules.cs(xe, "moe_ecd")
+        ye = _expert_ffn(p, xe, rules)
         back = ye.reshape(E * C, D)[
             torch.clamp(slot, 0, E * C - 1).reshape(-1)].reshape(N, K, D)
         out = torch.sum(back * gate_vals[..., None].to(back.dtype), dim=1)
@@ -343,14 +428,16 @@ def moe_ffn(p, x, moe_cfg):
             combine = combine + (d_k.float()
                                  * gate_vals[:, k, None, None])
             del d_k
-        ye = _expert_ffn(p, xe)
+        if rules is not None:
+            xe = rules.cs(xe, "moe_ecd")
+        ye = _expert_ffn(p, xe, rules)
         out = _einsum("nec,ecd->nd", combine.to(ye.dtype), ye)
     else:
         raise ValueError(f"unknown MoE dispatch {moe_cfg.dispatch!r}")
 
     out = out.reshape(B, S, D)
     if "shared" in p:
-        out = out + swiglu(p["shared"], x)
+        out = out + swiglu(p["shared"], x, rules)
     return out, _moe_aux(expert_ids, probs, moe_cfg)
 
 
@@ -405,7 +492,7 @@ def _mamba_ssm_chunked(dt, A, Bm, Cm, xin, h0):
     return torch.cat(ys, dim=1), h
 
 
-def mamba(p, x, cfg, *, state=None):
+def mamba(p, x, cfg, rules=None, *, state=None):
     """Mamba-1 selective SSM block.
 
     p: {in_proj (D, 2I), conv_w (dc, I), conv_b (I,), x_proj (I, R+2N),
@@ -421,6 +508,9 @@ def mamba(p, x, cfg, *, state=None):
     I = m.expand * D
     xz = _einsum("bsd,de->bse", x, p["in_proj"])
     xin, z = xz[..., :I], xz[..., I:]
+    if rules is not None:
+        xin = rules.cs(xin, "act_bsf")
+        z = rules.cs(z, "act_bsf")
     # depthwise causal conv over seq (dc taps), in the reference's order
     dc = m.d_conv
     if state is not None:
@@ -467,7 +557,7 @@ def _shifted(x, state):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def rwkv_time_mix(p, x, cfg, *, state=None, use_kernels=True):
+def rwkv_time_mix(p, x, cfg, rules=None, *, state=None, use_kernels=True):
     """RWKV6 time-mix with data-dependent decay.
 
     p: {mu_r/k/v/g/w (D,), w0 (D,), w_lora {a (D,r), b (r,D)},
@@ -495,7 +585,9 @@ def rwkv_time_mix(p, x, cfg, *, state=None, use_kernels=True):
     logw = logw.reshape(B, S, H, hd).permute(0, 2, 1, 3)
     rf, kf, vf, uf = (t.float().contiguous() for t in (r, k, v, p["u"]))
     if use_kernels and state is None:
-        out, S_fin = wops.wkv6(rf, kf, vf, logw.contiguous(), uf)
+        out, S_fin = _per_shard(
+            wops.wkv6, (rf, kf, vf, logw.contiguous(), uf),
+            (_BHSD,) * 4 + ((None, 0),), out_dims=(_BHSD, _BHSD))
     else:
         S0 = state["wkv"] if state is not None else torch.zeros(
             (B, H, hd, hd), dtype=torch.float32, device=x.device)

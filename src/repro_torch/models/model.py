@@ -16,10 +16,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.rules import reduce_partials, tp_only
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -278,33 +281,38 @@ def _at(tree, i):
     return tree[i]
 
 
-def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
-                 mode="train", extra=None, use_kernels=True):
+def _apply_block(p, spec, x, cfg, rules=None, *, cache=None,
+                 cache_index=None, mode="train", extra=None,
+                 use_kernels=True):
     """One block. Returns (x, aux): the block's MoE load-balance loss, or
     None for a block without one (the reference adds a 0 there). New cache
-    entries are written into `cache` in place."""
+    entries are written into `cache` in place. Under a mesh the block's
+    weights are gathered over the batch axes first (FSDP), their "model"
+    sharding kept."""
+    p = tree_map(tp_only, p)
     aux = None
     if spec["kind"] == "rwkv":
-        return _apply_rwkv_block(p, x, cfg, cache, use_kernels), aux
+        return _apply_rwkv_block(p, x, cfg, rules, cache, use_kernels), aux
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec["kind"] == "mamba":
         st = cache["mamba"] if cache is not None else None
-        o, mst = L.mamba(p["mamba"], h, cfg, state=st)
+        o, mst = L.mamba(p["mamba"], h, cfg, rules, state=st)
         if cache is not None:
             for name, new in mst.items():
                 cache["mamba"][name].copy_(new)
     elif spec["kind"] == "xattn":
-        o = _cross(p["attn"], h, cfg, cache, mode, extra)
+        o = _cross(p["attn"], h, cfg, rules, cache, mode, extra)
     else:
         use_rope = not cfg.encoder_layers     # whisper: abs pos, no rope
         if mode == "decode":
-            o, _ = L.decode_attention(p["attn"], h, cfg, cache=cache["kv"],
+            o, _ = L.decode_attention(p["attn"], h, cfg, rules,
+                                      cache=cache["kv"],
                                       cache_index=cache_index,
                                       use_rope=use_rope,
                                       use_kernels=use_kernels)
         else:
             kvc_in = cache["kv"] if cache is not None else None
-            o, _ = L.self_attention(p["attn"], h, cfg,
+            o, _ = L.self_attention(p["attn"], h, cfg, rules,
                                     causal=spec.get("causal", cfg.causal),
                                     use_rope=use_rope, kv_cache=kvc_in,
                                     cache_index=0 if kvc_in is not None
@@ -312,35 +320,35 @@ def _apply_block(p, spec, x, cfg, *, cache=None, cache_index=None,
         if spec.get("cross"):            # whisper decoder cross-attn sublayer
             x = x + o
             h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
-            o = _cross(p["xattn"], h, cfg, cache, mode, extra)
+            o = _cross(p["xattn"], h, cfg, rules, cache, mode, extra)
     x = x + o
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec["ffn"] == "moe":
-        o, aux = L.moe_ffn(p["moe"], h, cfg.moe)
+        o, aux = L.moe_ffn(p["moe"], h, cfg.moe, rules)
     else:
-        o = L.swiglu(p["ffn"], h)
+        o = L.swiglu(p["ffn"], h, rules)
     return x + o, aux
 
 
-def _cross(p, h, cfg, cache, mode, extra):
+def _cross(p, h, cfg, rules, cache, mode, extra):
     """Cross-attention of a block: over the `xkv` cache in decode; else
     over extra["cross_source"], whose projected k and v go into the cache
     when there is one (`_fit_cross_caches` gave it their shape and
     dtype)."""
     if mode == "decode":
-        return L.cross_attention(p, h, cfg, cache=cache["xkv"])[0]
-    o, xc = L.cross_attention(p, h, cfg, kv=extra["cross_source"])
+        return L.cross_attention(p, h, cfg, rules, cache=cache["xkv"])[0]
+    o, xc = L.cross_attention(p, h, cfg, rules, kv=extra["cross_source"])
     if cache is not None:
         for name, new in xc.items():
             cache["xkv"][name].copy_(new)
     return o
 
 
-def _apply_rwkv_block(p, x, cfg, cache, use_kernels):
+def _apply_rwkv_block(p, x, cfg, rules, cache, use_kernels):
     """An RWKV6 block (train, prefill and decode alike). The new shift and
     WKV states are written into `cache` in place."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, tm_state = L.rwkv_time_mix(p["time_mix"], h, cfg,
+    o, tm_state = L.rwkv_time_mix(p["time_mix"], h, cfg, rules,
                                   state=None if cache is None else
                                   cache["tm"], use_kernels=use_kernels)
     x = x + o
@@ -366,7 +374,7 @@ def _sinusoid(T, D, device, start=0):
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
-def _run_encoder(params, cfg, frames, use_kernels=True):
+def _run_encoder(params, cfg, frames, rules=None, use_kernels=True):
     """whisper's encoder over (B, T, D) frames (the conv frontend's output,
     stubbed as in the reference): absolute positions, non-causal attention
     blocks without rope, then the encoder's final norm."""
@@ -375,21 +383,27 @@ def _run_encoder(params, cfg, frames, use_kernels=True):
     spec = {"kind": "attn", "ffn": "dense", "causal": False}
     enc = params["encoder"]
     for li in range(cfg.encoder_layers):
-        x, _ = _apply_block(_at(enc["layers"], li), spec, x, cfg,
+        x, _ = _apply_block(_at(enc["layers"], li), spec, x, cfg, rules,
                             mode="train", use_kernels=use_kernels)
-    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+    return L.rms_norm(x, tp_only(enc["final_norm"]), cfg.norm_eps)
 
 
-def _embed(params, cfg, tokens):
-    return params["embed"][tokens]
+def _embed(params, cfg, tokens, rules=None):
+    x = F.embedding(tokens, tp_only(params["embed"]))
+    if rules is not None:
+        return rules.cs(x, "act_bsd")
+    return reduce_partials(x)
 
 
-def _unembed(params, cfg, x):
-    head = params.get("lm_head", params["embed"])
-    return L._einsum("bsd,vd->bsv", x, head)
+def _unembed(params, cfg, x, rules=None):
+    head = tp_only(params.get("lm_head", params["embed"]))
+    logits = L._einsum("bsd,vd->bsv", x, head)
+    if rules is not None:
+        logits = rules.cs(logits, "logits_bsv")
+    return logits
 
 
-def _prepare_extra(params, cfg, extra, use_kernels=True):
+def _prepare_extra(params, cfg, extra, rules=None, use_kernels=True):
     """The cross-attention source: the encoder's output over
     extra["audio_frames"] (whisper), or extra["image_embeds"] (the VLM,
     whose vision tower is stubbed as in the reference); {} for the other
@@ -402,7 +416,7 @@ def _prepare_extra(params, cfg, extra, use_kernels=True):
                          f"{cfg.d_model}) as its cross-attention source")
     src = extra[key]
     if cfg.encoder_layers:
-        src = _run_encoder(params, cfg, src, use_kernels)
+        src = _run_encoder(params, cfg, src, rules, use_kernels)
     return {"cross_source": src}
 
 
@@ -424,7 +438,7 @@ def _fit_cross_caches(params, cfg, caches, source):
                 xkv[name] = torch.zeros(shape, dtype=dt, device=t.device)
 
 
-def _run_layers(params, cfg, x, caches, *, remat=False, **kw):
+def _run_layers(params, cfg, x, caches, rules=None, *, remat=False, **kw):
     """The periods in order. Returns (x, aux): aux summed over the blocks
     in the reference's order."""
     specs = block_specs(cfg)
@@ -433,7 +447,7 @@ def _run_layers(params, cfg, x, caches, *, remat=False, **kw):
         for i, spec in enumerate(specs):
             cc = None if caches is None else _at(caches["layers"][i], li)
             x, a = _apply_block(_at(params["layers"][i], li), spec, x, cfg,
-                                cache=cc, **kw)
+                                rules, cache=cc, **kw)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -450,8 +464,8 @@ def _run_layers(params, cfg, x, caches, *, remat=False, **kw):
     return x, aux
 
 
-def forward(params, cfg: ModelConfig, tokens, *, extra=None, caches=None,
-            use_kernels=True, remat=True):
+def forward(params, cfg: ModelConfig, tokens, *, extra=None, rules=None,
+            caches=None, use_kernels=True, remat=True):
     """Full-sequence forward (train, or prefill when caches are given).
 
     Returns (logits, aux_loss, new_caches); aux_loss is the MoE blocks'
@@ -464,25 +478,26 @@ def forward(params, cfg: ModelConfig, tokens, *, extra=None, caches=None,
     `_fit_cross_caches`); new_caches shares them and carries the advanced
     index.
     """
-    extra = _prepare_extra(params, cfg, extra or {}, use_kernels)
+    extra = _prepare_extra(params, cfg, extra or {}, rules, use_kernels)
     if caches is not None and extra:
         _fit_cross_caches(params, cfg, caches, extra["cross_source"])
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, rules)
     if cfg.encoder_layers:                      # whisper decoder abs pos
         x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
-    x, aux = _run_layers(params, cfg, x, caches, mode="train", extra=extra,
+    x, aux = _run_layers(params, cfg, x, caches, rules, mode="train",
+                         extra=extra,
                          use_kernels=use_kernels,
                          remat=remat and caches is None
                          and torch.is_grad_enabled())
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(params, cfg, x)
+    x = L.rms_norm(x, tp_only(params["final_norm"]), cfg.norm_eps)
+    logits = _unembed(params, cfg, x, rules)
     out_caches = None
     if caches is not None:
         out_caches = {**caches, "index": caches["index"] + tokens.shape[1]}
     return logits, aux, out_caches
 
 
-def decode_step(params, cfg: ModelConfig, token, caches, *,
+def decode_step(params, cfg: ModelConfig, token, caches, *, rules=None,
                 use_kernels=True):
     """One-token decode. token (B,1). Returns (logits, new_caches).
 
@@ -490,14 +505,14 @@ def decode_step(params, cfg: ModelConfig, token, caches, *,
     carries the advanced index.
     """
     index = caches["index"]
-    x = _embed(params, cfg, token)
+    x = _embed(params, cfg, token, rules)
     if cfg.encoder_layers:
         x = x + _sinusoid(1, cfg.d_model, x.device, start=index)[0].to(
             x.dtype)
-    x, _ = _run_layers(params, cfg, x, caches, cache_index=index,
+    x, _ = _run_layers(params, cfg, x, caches, rules, cache_index=index,
                        mode="decode", use_kernels=use_kernels)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x), {**caches, "index": index + 1}
+    x = L.rms_norm(x, tp_only(params["final_norm"]), cfg.norm_eps)
+    return _unembed(params, cfg, x, rules), {**caches, "index": index + 1}
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ of operations: global-norm clip in float32, bias corrections in float32,
 decay applied to the float32 master, `new_p = master.to(p.dtype)`. Unlike
 the reference, which returns a new state, `adamw_update` writes params,
 moments and master in place: at full width a second copy of the state does
-not fit next to the first.
+not fit next to the first. Under a mesh the leaves are DTensors, and the
+same code runs on them (DTensor reduces the global-norm sum across
+shards).
 """
 from __future__ import annotations
 
@@ -38,14 +40,15 @@ class OptimizerConfig:
 
 
 class TrainState(NamedTuple):
-    """The reference's TrainState without `ef` (the error feedback of the
-    compressed cross-pod sync, ROADMAP.md queue 1 item 9). `step` is an
-    int."""
+    """The reference's TrainState; `step` is an int. `ef` is the error
+    feedback of the compressed cross-pod sync (bf16, like the params), or
+    None."""
     step: int
     params: dict
     m: dict
     v: dict
     master: Optional[dict]
+    ef: Optional[dict] = None
 
 
 # ---- per-row int8 quantization ---------------------------------------------
@@ -71,14 +74,18 @@ def _zeros_like_state(p, dtype):
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
-def adamw_init(params: dict, cfg: OptimizerConfig) -> TrainState:
+def adamw_init(params: dict, cfg: OptimizerConfig, *,
+               with_ef: bool = False) -> TrainState:
     m = tree_map(lambda p: _zeros_like_state(p, cfg.state_dtype), params)
     v = tree_map(lambda p: _zeros_like_state(p, cfg.state_dtype), params)
     master = None
     if cfg.state_dtype == "float32" and cfg.master:
         master = tree_map(
             lambda p: p.detach().to(torch.float32, copy=True), params)
-    return TrainState(0, params, m, v, master)
+    ef = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
+                                        device=p.device),
+                  params) if with_ef else None
+    return TrainState(0, params, m, v, master, ef)
 
 
 def _f32(x) -> torch.Tensor:
@@ -89,7 +96,7 @@ def _f32(x) -> torch.Tensor:
 def adamw_update(state: TrainState, grads: dict, cfg: OptimizerConfig,
                  lr_fn: Callable) -> TrainState:
     """One AdamW step; updates the state's tensors in place and returns
-    the state with the step advanced."""
+    the state with the step advanced (`ef` carried through unchanged)."""
     step = state.step + 1
     lr = lr_fn(step)
     # global-norm clip, summed over the leaves in jax.tree.leaves order

@@ -32,10 +32,16 @@ def tree_map(fn, tree, *rest):
     """fn over the leaves of `tree` and the matching subtrees of `rest`
     (as `jax.tree.map` with `flatten_up_to`: where `tree` has a leaf,
     `rest` may have a whole subtree, such as an int8 moment's
-    {"q", "scale"})."""
+    {"q", "scale"}). A NamedTuple (a TrainState) keeps its type; None is
+    an empty subtree, as in jax."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]

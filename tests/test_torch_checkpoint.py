@@ -230,17 +230,23 @@ def test_writer_error_is_raised(tmp_path, state, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _jax_state(state_dtype):
+def _jax_state(state_dtype, with_ef=False):
     """A reference TrainState after one train step (nonzero moments),
-    qwen3-32b smoke: bf16 params, float32 or int8 moments."""
+    qwen3-32b smoke: bf16 params, float32 or int8 moments; with `ef`, the
+    error feedback holds random bf16 values."""
     jc, _ = cfg_pair("qwen3-32b", smoke=True, f32=False)
     oc = JOptimizerConfig(state_dtype=state_dtype,
                           master=state_dtype == "float32")
-    st = jax_adamw_init(JM.init_params(jax.random.PRNGKey(0), jc), oc)
+    st = jax_adamw_init(JM.init_params(jax.random.PRNGKey(0), jc), oc,
+                        with_ef=with_ef)
     toks = np.random.default_rng(0).integers(0, jc.vocab_size, (2, 17),
                                              dtype=np.int32)
     st, _ = jax.jit(jax_make_train_step(jc, oc))(
         st, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    if with_ef:
+        rng = np.random.default_rng(1)
+        st = st._replace(ef=jax.tree.map(lambda e: jax.numpy.asarray(
+            rng.standard_normal(e.shape) * 1e-3, jax.numpy.bfloat16), st.ef))
     return st
 
 
@@ -248,14 +254,15 @@ def _manifest(d):
     return json.loads((d / "manifest.json").read_text())
 
 
+@pytest.mark.parametrize("with_ef", [False, True])
 @pytest.mark.parametrize("state_dtype", ["float32", "int8"])
-def test_checkpoints_cross_packages(tmp_path, state_dtype):
+def test_checkpoints_cross_packages(tmp_path, state_dtype, with_ef):
     """The reference saves a TrainState and the port restores it; the port
     saves the same state and the reference restores it. Every leaf equal
     bit for bit both ways; both manifests have the same leaf paths, dtype
     strings, shapes, files and chunks (small chunks, so leaves span
-    several)."""
-    jstate = _jax_state(state_dtype)
+    several). With `ef`, its leaves are among them."""
+    jstate = _jax_state(state_dtype, with_ef)
     tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate))
     assert tstate.step == 1
 
@@ -286,6 +293,7 @@ def test_checkpoints_cross_packages(tmp_path, state_dtype):
             jax.tree_util.keystr(path)
 
     jm, tm = _manifest(jdir), _manifest(tdir)
+    assert any(p.startswith("ef/") for p in tm["leaves"]) == with_ef
     assert set(jm["leaves"]) == set(tm["leaves"])
     assert {p: m["dtype"] for p, m in jm["leaves"].items()} == \
         {p: m["dtype"] for p, m in tm["leaves"].items()}

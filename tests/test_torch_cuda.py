@@ -498,3 +498,58 @@ def test_xattn_model_on_card(cuda_device, arch):
         assert launched == want
     np.testing.assert_allclose(to_np(out[str(cuda_device)]),
                                to_np(out["cpu"]), atol=1e-4, rtol=0)
+
+
+def test_world1_nccl_gspmd_step_on_card(cuda_device, tmp_path):
+    """The sharded train step on a (1, 1) mesh of a world-1 NCCL group
+    against the meshless step, on the card: h2o-danube-1.8b smoke (two
+    layers, head dim 32, the 32-token window) in float32, 3 steps of 4 x
+    64 tokens from the same params and batches. Losses within 1e-5
+    relative, params after them within 1e-6 of the largest |p|, and the
+    flash kernel launched as often on both (the mesh hands it each rank's
+    shard, never the plain path)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.sharding.rules import (ShardingRules, gather, place,
+                                            state_specs)
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = _cfg("h2o-danube-1.8b", head_dim=32)
+    params = M.init_params(torch.Generator(cuda_device).manual_seed(0), cfg)
+    oc = OptimizerConfig(lr=1e-3, warmup=2, total_steps=10)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65),
+                                             dtype=np.int32)).to(cuda_device)
+        batches.append({"tokens": toks[:, :-1].contiguous(),
+                        "labels": toks[:, 1:].contiguous()})
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        out = {}
+        for meshed in (True, False):
+            state = adamw_init(tree_map(torch.clone, params), oc)
+            rules = None
+            if meshed:
+                rules = ShardingRules(mesh)
+                state = place(state, state_specs(state, mesh), mesh)
+            step = make_train_step(cfg, oc, rules)
+            n0 = fops.flash_attention.launches
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+            out[meshed] = (losses, fops.flash_attention.launches - n0,
+                           tree_leaves(gather(state.params)))
+    finally:
+        dist.destroy_process_group()
+    (lm, nm, pm), (lp, np_, pp) = out[True], out[False]
+    np.testing.assert_allclose(lm, lp, rtol=1e-5)
+    assert nm == np_ == cfg.num_layers * 2 * 3
+    top = max(float(p.abs().max()) for p in pp)
+    assert max(float((a - b).abs().max()) for a, b in zip(pm, pp)) \
+        <= 1e-6 * top

@@ -39,6 +39,7 @@ from repro_torch.optim import (OptimizerConfig, adamw_init,  # noqa: E402
                                adamw_update, cosine_schedule)
 from repro_torch.optim.adamw import _dequant, _quant  # noqa: E402
 from repro_torch.train import cross_entropy, make_train_step  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 # float32 losses of the two packages: the same sums in another order
@@ -268,10 +269,32 @@ def test_int8_state_tracks_fp32():
     assert abs(outs["int8"] - outs["float32"]) < 0.15, outs
 
 
-def test_compressed_pod_sync_names_its_roadmap_item():
+def test_compressed_pod_without_a_pod_axis_is_gspmd():
+    """Without rules (one device) grad_sync='compressed_pod' is the gspmd
+    step, as in the reference (src/repro/train/steps.py:94-96): the same
+    losses and params bit for bit; the ef is carried through untouched.
+    An unknown sync raises."""
     _, tc = cfg_pair("lovelock-20m", smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        make_train_step(tc, OptimizerConfig(), grad_sync="compressed_pod")
+    oc = OptimizerConfig(lr=1e-3, warmup=2, total_steps=10)
+    out = {}
+    for mode in ("gspmd", "compressed_pod"):
+        state = adamw_init(TM.init_params(torch.Generator().manual_seed(0),
+                                          tc), oc, with_ef=True)
+        step = make_train_step(tc, oc, grad_sync=mode)
+        losses = []
+        for i in range(2):
+            state, m = step(state, _torch_batch(_batch(i, 4, 16,
+                                                       tc.vocab_size)))
+            losses.append(float(m["loss"]))
+        out[mode] = (losses, state)
+    assert out["gspmd"][0] == out["compressed_pod"][0]
+    for a, b in zip(tree_leaves(out["gspmd"][1].params),
+                    tree_leaves(out["compressed_pod"][1].params)):
+        assert torch.equal(a, b)
+    assert all(float(e.abs().max()) == 0
+               for e in tree_leaves(out["compressed_pod"][1].ef))
+    with pytest.raises(ValueError, match="grad_sync"):
+        make_train_step(tc, oc, grad_sync="ring")
 
 
 # ---------------------------------------------------------------------------
@@ -338,14 +361,6 @@ def test_train_loop_matches_reference():
     assert all(s > 0 for s in info["step_s"]) and info["wall_s"] > 0
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"data_mesh": 2}, "item 8"), ({"model_mesh": 2}, "item 8")])
-def test_train_loop_names_what_is_not_ported(kw, item):
-    _, tc = cfg_pair("lovelock-20m", smoke=True)
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-        ttrain.train_loop(tc, steps=1, batch=4, seq=8, device="cpu", **kw)
-
-
 def test_train_loop_defaults_to_the_card():
     """No card here: the default device raises rather than using the CPU."""
     if torch.cuda.is_available():
@@ -378,7 +393,8 @@ runpy.run_module("repro_torch.launch.train", run_name="__main__")
 
 
 def test_train_state_from_numpy():
-    """The reference's TrainState carried across: float32 and int8."""
+    """The reference's TrainState carried across: float32 and int8, and
+    with the error feedback `ef` (bf16, like the params)."""
     for sd in ("float32", "int8"):
         oc = JOptimizerConfig(state_dtype=sd, master=sd == "float32")
         jstate = jax_adamw_init(_toy_params(jnp.bfloat16), oc)
@@ -391,9 +407,19 @@ def test_train_state_from_numpy():
             assert state.m["w"]["scale"].shape == (8,)
         else:
             assert state.master["w"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_state_from_numpy(_state_np(jax_adamw_init(
-            _toy_params(jnp.float32), JOptimizerConfig(), with_ef=True)))
+    jstate = jax_adamw_init(_toy_params(jnp.float32), JOptimizerConfig(),
+                            with_ef=True)
+    rng = np.random.default_rng(5)
+    jstate = jstate._replace(ef=jax.tree.map(
+        lambda e: jnp.asarray(rng.standard_normal(e.shape), jnp.bfloat16),
+        jstate.ef))
+    state = train_state_from_numpy(_state_np(jstate))
+    assert state.ef["w"].dtype == torch.bfloat16
+    _assert_tree_close(state.ef, jstate.ef, 0)
+    ported = adamw_init(train_state_from_numpy(_state_np(jstate)).params,
+                        OptimizerConfig(), with_ef=True)
+    assert [(t.dtype, t.shape) for t in tree_leaves(ported.ef)] == \
+        [(t.dtype, t.shape) for t in tree_leaves(state.ef)]
 
 
 @pytest.mark.parametrize("arch", ["lovelock-20m", "rwkv6-7b"])
