@@ -34,7 +34,9 @@ order; any failure ends the run with a non-zero exit and no result line:
               4096; decode over 4,128 slots, also with a float32 q, the
               route its float32 gate takes); flash is also held at the
               distributed phase's train shapes (h2o-danube-1.8b at
-              4 x 2048 and 4 x 512) in both dtypes;
+              4 x 2048 and 4 x 512) in both dtypes; flash and decode
+              attention also at the examples phase's shapes
+              (`_example_shapes`);
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -138,7 +140,28 @@ order; any failure ends the run with a non-zero exit and no result line:
               by the streaming checkpointer under build/ and read back
               onto the card bit for bit, with write and read GB/s and at
               most `buffers` x `chunk` bytes in flight; then deleted;
-10. result -- print the kernels' JSON line, then the device line.
+10. dryrun -- (a) the port's dry-run traces the distributed phase's
+              meshless train step (h2o-danube-1.8b whole, bf16, DIST, plain
+              path) on meta tensors; one real plain-path step on the card
+              from random weights: its FLOPs under FlopCounterMode must
+              equal the trace's exactly, and the trace's peak memory (state,
+              batch and temporaries) must be within DRY_MEM_RTOL of
+              torch.cuda.max_memory_allocated. (b) The model FLOPs, the
+              trace's roofline step time, and the useful-FLOP share of the
+              distributed phase's meshless step (the mean of steps 2-3,
+              PERF.md section 2's steady step). (c) `python
+              -m repro_torch.launch.dryrun --arch h2o-danube-1.8b --shape
+              train_4k --mesh both` in a subprocess (DRY_TIMEOUT) must exit
+              0; both records' roofline lines;
+11. waterfill -- the water-fill solver on the card against the port's
+              numpy copy of the reference's allocator, bitwise, at
+              WATERFILL_FLOWS flows (integer capacities: ties), numpy and
+              card ms a solve;
+12. examples -- the example twins on the card, in this process:
+              train_e2e_torch.py E2E_ARGS (its loss must fall, flash
+              launches counted), then quickstart, elastic_recovery (one
+              recovery) and serve_batched at their defaults;
+13. result -- print the kernels' JSON line, then the device line.
 """
 from __future__ import annotations
 
@@ -277,6 +300,24 @@ DIST_LR = 1e-3
 DIST_PARAM_TOL = 1e-6
 # ElasticRunner: arch, batch, seq, batches, checkpoint every, failure at
 ELASTIC = ("lovelock-20m", 8, 256, 12, 4, 6)
+# the dryrun phase: the distributed phase's meshless train step (h2o-danube
+# -1.8b whole, bf16, DIST batch x seq, plain path) traced on meta tensors by
+# the port's dry-run, held to one real step of the plain path on the card:
+# FLOPs exactly, memory (peak of state, batch and temporaries) within
+# DRY_MEM_RTOL of torch.cuda.max_memory_allocated; then the production-mesh
+# dry-run of the same model at train_4k, in a subprocess
+DRY_MEM_RTOL = 0.10
+DRY_CLI = ["-m", "repro_torch.launch.dryrun", "--arch", "h2o-danube-1.8b",
+           "--shape", "train_4k", "--mesh", "both"]
+DRY_TIMEOUT = 180          # seconds; ~36 s on the sandbox's CPU
+# the waterfill phase: random max-min instances at these flow counts, 1-4
+# holds a flow over flows / 4 resources of integer capacity 1-8 (so fair
+# shares tie), each solved by the port's numpy copy and on the card
+WATERFILL_FLOWS = (192, 4096, 65536)
+# the examples phase: train_e2e_torch.py's quick check (its docstring);
+# the smoke variants' head dim on the card (the examples' docstrings)
+E2E_ARGS = ["--steps", "10", "--batch", "4", "--seq", "128"]
+EX_HEAD_DIM = 32
 DEVICE = "cuda"
 
 
@@ -432,7 +473,8 @@ def _flash_times(torch, gen, case) -> dict:
     plain = _time_ms(lambda i: flash_attention_ref(
         q, k, v, causal=causal, window=window), reps=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window is None:
+    if window is None or (causal and window >= S):
+        # a window that spans the sequence masks nothing beyond causality
         f_sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=causal, enable_gqa=True)
     else:
@@ -500,6 +542,27 @@ def _case_err(cases, case, dtype) -> float:
                 if c["shape"] == list(case) and c["dtype"] == str(dtype))
 
 
+def _example_shapes() -> tuple:
+    """(flash cases, decode cases) at the shapes the examples phase runs
+    the kernels at: train_e2e's lovelock-100m at E2E_ARGS' 4 x 128;
+    quickstart's qwen3-32b smoke variant (head dim EX_HEAD_DIM) training
+    at 4 x 64, prefilling 2 x 16 and decoding 12 tokens into a 28-slot
+    cache; elastic_recovery's h2o-danube-1.8b smoke variant at 4 x 32
+    with its window. serve_batched's rwkv6-7b runs no attention kernel."""
+    from repro_torch.configs import get_config, smoke_variant
+    lm = get_config("lovelock-100m")
+    qw = smoke_variant(get_config("qwen3-32b"))
+    h2 = smoke_variant(get_config("h2o-danube-1.8b"))
+    qh, h2h, d = ((qw.num_heads, qw.num_kv_heads),
+                  (h2.num_heads, h2.num_kv_heads), EX_HEAD_DIM)
+    flash = [(4, 128, lm.num_heads, lm.num_kv_heads, lm.head_dim, True,
+              lm.sliding_window),
+             (4, 64, *qh, d, True, qw.sliding_window),
+             (2, 16, *qh, d, True, qw.sliding_window),
+             (4, 32, *h2h, d, True, h2.sliding_window)]
+    return flash, [(2, 16 + 12, *qh, d)]
+
+
 def phase_kernels(torch, seed: int) -> list:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -529,9 +592,10 @@ def phase_kernels(torch, seed: int) -> list:
     # window spans the sequence) and its float32 check's 4 x 512
     train_flash = [(DIST[0], DIST[1], H, K, d, True, window),
                    (DIST_F32[1], DIST_F32[2], H, K, d, True, window)]
+    ex_flash, ex_decode = _example_shapes()
     for dt in (torch.float32, torch.bfloat16):
         extra = FLASH_BF16_DIMS if dt == torch.bfloat16 else []
-        for case in FLASH_SWEEP + extra + train_flash + [
+        for case in FLASH_SWEEP + extra + train_flash + ex_flash + [
                 wh_flash, vlm_flash, hy_flash, h2o_flash]:
             B, S, Hc, Kc, dc, causal, win = case
             q = _randn(torch, gen, (B, S, Hc, dc), dt)
@@ -547,6 +611,7 @@ def phase_kernels(torch, seed: int) -> list:
     f_hy = _flash_times(torch, gen, hy_flash)
     f_wh = _flash_times(torch, gen, wh_flash)
     f_vlm = _flash_times(torch, gen, vlm_flash)
+    f_train = _flash_times(torch, gen, train_flash[0])
 
     # -- decode attention --
     decode_cases = []
@@ -567,12 +632,14 @@ def phase_kernels(torch, seed: int) -> list:
                   vlm.head_dim)
     valids = {h2o_decode: ring, hy_decode: hy_valid, wh_decode: wh_valid,
               vlm_decode: vlm_valid}
+    for case in ex_decode:      # the last decode step of a cache not full
+        valids[case] = _ring_valid(torch, case[0], case[1], case[1] - 2)
     # (q, cache) dtypes: float32, bf16, and a bf16 cache under float32 q
     for qt, ct in ((torch.float32, torch.float32),
                    (torch.bfloat16, torch.bfloat16),
                    (torch.float32, torch.bfloat16)):
-        for case in DECODE_SWEEP + [wh_decode, vlm_decode, hy_decode,
-                                    h2o_decode]:
+        for case in DECODE_SWEEP + ex_decode + [wh_decode, vlm_decode,
+                                                hy_decode, h2o_decode]:
             B, W, Hc, Kc, dc = case
             q = _randn(torch, gen, (B, 1, Hc, dc), qt)
             k = _randn(torch, gen, (B, W, Kc, dc), ct)
@@ -617,6 +684,7 @@ def phase_kernels(torch, seed: int) -> list:
         _fail(f"kernels disagree with their plain versions: {bad}")
     for name, t in (("flash_attention", f_times), ("flash_attention", f_hy),
                     ("flash_attention", f_wh), ("flash_attention", f_vlm),
+                    ("flash_attention", f_train),
                     ("decode_attention", d_times),
                     ("decode_attention", d_hy), ("decode_attention", d_wh),
                     ("decode_attention", d_vlm),
@@ -650,6 +718,8 @@ def phase_kernels(torch, seed: int) -> list:
              flash_cases, wh_flash, torch.bfloat16)),
          "at_" + VLM: dict(f_vlm, max_abs_err=_case_err(
              flash_cases, vlm_flash, torch.bfloat16)),
+         "at_distributed train": dict(f_train, max_abs_err=_case_err(
+             flash_cases, train_flash[0], torch.bfloat16)),
          "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/"
@@ -2100,6 +2170,212 @@ def phase_distributed(torch, seed: int, card: str) -> tuple:
     return launches, out
 
 
+def phase_dryrun(torch, seed: int, card: str, dist_stats: dict) -> dict:
+    """(a) The dry-run's trace of the distributed phase's meshless train
+    step on the plain path, against one real step of it on the card;
+    (b) the h2o train step's useful-FLOP share; (c) the production-mesh
+    dry-run of h2o-danube-1.8b at train_4k in a subprocess."""
+    import gc
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.roofline import PEAK_FLOPS_BF16
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    B, S, _ = DIST
+    cfg, oc = _h2o(), OptimizerConfig(lr=DIST_LR)
+    shape = ShapeConfig("distributed_train", S, B, "train")
+    # (a) the trace, then the real step it traced
+    rec = D.cell_record(cfg, shape, None, "none", opt_cfg=oc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = adamw_init(M.init_params(
+        torch.Generator(DEVICE).manual_seed(seed), cfg), oc)
+    batch = _device_batch(torch, cfg, B, S, 0, seed)
+    step = make_train_step(cfg, oc, use_kernels=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = fc.get_total_flops()
+    predicted = rec["peak_temp_bytes"] + rec["arg_bytes"]
+    mem_rel = abs(predicted - peak) / peak
+    print(f"  {ARCH} bf16 {B}x{S}, one plain-path train step: the dry-run's "
+          f"trace ({rec['lower_s']} s on the host) counts {rec['roofline']['flops']:.6e}"
+          f" FLOPs, FlopCounterMode around the step on {card} "
+          f"{flops:.6e}; memory predicted {predicted / 1e9:.3f} GB (args "
+          f"{rec['arg_bytes'] / 1e9:.3f}, temporaries "
+          f"{rec['peak_temp_bytes'] / 1e9:.3f}), max_memory_allocated "
+          f"{peak / 1e9:.3f} GB ({held / 1e9:.3f} GB held before the "
+          f"step), {mem_rel:.4f} relative (tol {DRY_MEM_RTOL}); loss "
+          f"{loss:.4f}, {step_s:.3f} s under the counter")
+    if rec["roofline"]["flops"] != flops:
+        _fail(f"dry-run FLOPs {rec['roofline']['flops']} != the real "
+              f"step's {flops}")
+    if not mem_rel <= DRY_MEM_RTOL:
+        _fail(f"dry-run memory {predicted} off max_memory_allocated {peak} "
+              f"by {mem_rel:.4f}")
+    if not math.isfinite(loss):
+        _fail(f"plain-path step: non-finite loss {loss}")
+    # (b) the useful-FLOP share of the distributed phase's meshless step
+    roof = rec["roofline"]
+    meshless = dist_stats[f"{ARCH} bf16"]["no mesh"]
+    steady = sum(meshless["step_s"][1:]) / len(meshless["step_s"][1:])
+    share = roof["model_flops"] / (steady * PEAK_FLOPS_BF16)
+    step_time = max(roof["t_compute"], roof["t_memory"], roof["t_collective"])
+    print(f"  {ARCH} bf16 {B}x{S} on {card}: model_flops "
+          f"{roof['model_flops']:.6e} a step; the dry-run's roofline "
+          f"step_time {step_time:.4f} s (plain path, bound by "
+          f"{roof['bottleneck']}); the distributed phase's meshless step "
+          f"{steady:.4f} s (mean of steps 2-3, kernel path): useful-FLOP "
+          f"share {share:.4f} of {PEAK_FLOPS_BF16:.0e} FLOP/s")
+    # (c) the production meshes, in a process of their own (this one holds
+    # the NCCL phase's state)
+    import os
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, *DRY_CLI], cwd=ROOT, capture_output=True,
+        text=True, timeout=DRY_TIMEOUT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    cli_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    for ln in lines:
+        print(f"    {ln}")
+    if proc.returncode != 0:
+        _fail(f"dry-run CLI exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+              f"\n{proc.stderr[-3000:]}")
+    records = {}
+    for mk in ("single", "multi"):
+        r = json.loads((ROOT / "artifacts" / "dryrun_torch" /
+                        f"h2o-danube-1.8b__train_4k__{mk}.json").read_text())
+        records[mk] = {k: r[k] for k in ("n_devices", "traced_mesh",
+                                          "lower_s", "arg_bytes",
+                                          "peak_temp_bytes", "collectives",
+                                          "roofline")}
+        print(f"  dry-run {mk}: {json.dumps(r['roofline'])}")
+    print(f"  dry-run CLI: {cli_s:.1f} s")
+    return {"meshless": {"flops": flops, "trace_flops": roof["flops"],
+                         "predicted_bytes": predicted,
+                         "max_memory_allocated": peak,
+                         "held_before_step": held, "memory_rel_err": mem_rel,
+                         "trace_s": rec["lower_s"], "loss": loss,
+                         "roofline": roof},
+            "useful_flop_share": share, "meshless_step_s": steady,
+            "roofline_step_time_s": step_time, "cli_s": cli_s,
+            "production": records}
+
+
+def _waterfill_instance(np, rng, nf):
+    """A CSR incidence of `nf` flows holding 1-4 of nf // 4 resources, with
+    integer capacities 1-8."""
+    nres = max(nf // 4, 1)
+    counts = rng.integers(1, 5, size=nf)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    indices = rng.integers(0, nres, size=int(counts.sum())).astype(np.int64)
+    cap = rng.integers(1, 9, size=nres).astype(np.float64)
+    return indptr, indices, cap
+
+
+def phase_waterfill(torch, seed: int) -> dict:
+    """The water-fill solver on the card against the port's numpy copy,
+    bitwise, at WATERFILL_FLOWS. Returns the waterfill block of the result
+    line."""
+    import numpy as np
+    from repro_torch.sim.alloc import vector_water_fill, vector_water_fill_torch
+    rng = np.random.default_rng(seed)
+    out = {}
+    vector_water_fill_torch(*_waterfill_instance(np, rng, 64))  # warm up
+    for nf in WATERFILL_FLOWS:
+        inst = _waterfill_instance(np, rng, nf)
+        t0 = time.perf_counter()
+        want = vector_water_fill(*inst)
+        np_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = vector_water_fill_torch(*inst)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        same = got.tobytes() == want.tobytes()
+        out[str(nf)] = {"pairs": int(inst[1].size), "numpy_ms": np_ms,
+                        "card_ms": card_ms, "bitwise_equal": same,
+                        "distinct_rates": int(np.unique(want).size)}
+        print(f"  {nf} flows, {inst[1].size} holds: numpy {np_ms:.1f} ms, "
+              f"card {card_ms:.1f} ms a solve; bitwise equal {same}")
+        if not same:
+            _fail(f"water-fill at {nf} flows differs from numpy")
+    return out
+
+
+def phase_examples(torch) -> tuple:
+    """The example twins on the card, in this process: train_e2e_torch.py's
+    quick check (lovelock-100m through the flash kernel; its loss must
+    fall), then quickstart, elastic_recovery and serve_batched at their
+    defaults. Returns (launches by kernel and example, the examples
+    block)."""
+    import importlib.util
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_example", ROOT / "examples" / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    launches = {"flash_attention": {}, "decode_attention": {}}
+    out = {}
+    runs = (("train_e2e", E2E_ARGS + [
+                "--ckpt-dir", "",
+                "--log-path", str(ROOT / "build" / "train_100m_torch.jsonl")]),
+            ("quickstart", []), ("elastic_recovery", []),
+            ("serve_batched", []))
+    for name, argv in runs:
+        fops.flash_attention.launches = 0
+        dops.decode_attention.launches = 0
+        t0 = time.perf_counter()
+        res = load(name).main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        path = f"examples {name}_torch.py"
+        counts = {"flash_attention": fops.flash_attention.launches,
+                  "decode_attention": dops.decode_attention.launches}
+        for k, n in counts.items():
+            if n:
+                launches[k][path] = n
+        print(f"  {name}_torch.py {' '.join(argv)}: {secs:.1f} s, "
+              f"launches {counts}")
+        out[name] = {"seconds": secs, "launches": counts}
+        if name == "train_e2e":
+            losses = res["losses"]
+            out[name]["losses"] = losses
+            if not (all(math.isfinite(x) for x in losses)
+                    and losses[-1] < losses[0]):
+                _fail(f"train_e2e_torch: losses {losses} do not fall")
+            if counts["flash_attention"] == 0:
+                _fail("train_e2e_torch ran no flash launch")
+        elif name == "quickstart":
+            if not all(math.isfinite(x) for x in res["losses"]):
+                _fail(f"quickstart_torch: losses {res['losses']}")
+            if not (counts["flash_attention"] and
+                    counts["decode_attention"]):
+                _fail(f"quickstart_torch launched {counts}")
+        elif name == "elastic_recovery":
+            if res["recoveries"] != 1:
+                _fail(f"elastic_recovery_torch: {res['recoveries']} "
+                      "recoveries")
+    return launches, out
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -2162,6 +2438,15 @@ def main() -> int:
     dist_launches, dist_stats = phase_distributed(torch, args.seed, card)
     print("== checkpoint")
     ckpt_stats = phase_checkpoint(torch, args.seed, card)
+    t_new = time.perf_counter()
+    print("== dryrun")
+    dry_stats = phase_dryrun(torch, args.seed, card, dist_stats)
+    print("== waterfill")
+    wf_stats = phase_waterfill(torch, args.seed)
+    print("== examples")
+    ex_launches, ex_stats = phase_examples(torch)
+    new_s = time.perf_counter() - t_new
+    print(f"dryrun, waterfill and examples: {new_s:.1f} s")
     hy_path = f"serve {HYBRID} ({HY_LAYERS} layers)"
     xa_paths = {WHISPER: f"serve {WHISPER}",
                 VLM: f"serve {VLM} ({VLM_LAYERS} layers)"}
@@ -2174,6 +2459,8 @@ def main() -> int:
     for path, n in train_launches.items():
         by_path["wkv6" if RWKV in path else "flash_attention"][path] = n
     by_path["flash_attention"].update(dist_launches)
+    for name, paths in ex_launches.items():
+        by_path[name].update(paths)
     for k in kernels:
         # each main path's own count, reset to 0 just before its run and
         # read just after; `launches` is the first such path's
@@ -2184,7 +2471,9 @@ def main() -> int:
                       "serve": serve_stats, "serve_hybrid": hybrid_stats,
                       "serve_xattn": xattn_stats,
                       "train": train_stats, "distributed": dist_stats,
-                      "checkpoint": ckpt_stats}))
+                      "checkpoint": ckpt_stats, "dryrun": dry_stats,
+                      "waterfill": wf_stats, "examples": ex_stats,
+                      "new_phases_s": new_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

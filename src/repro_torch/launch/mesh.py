@@ -14,6 +14,12 @@ body is just code; and a body that is manual over "pod" alone runs on the
 pod's ("data", "model") sub-mesh, `mesh["data", "model"]`, with the pod
 group `mesh.get_group("pod")` for its collectives (see
 `core/collectives.py` and `train/steps.py`).
+
+`make_fake_mesh` stands in for the reference's 512 host devices of its
+dry-run: an in-process group of that many ranks on the `fake` backend, of
+which this process is rank 0. Its collectives move nothing, so rank 0 can
+trace its own shard of a step over the production mesh
+(`launch/dryrun.py`).
 """
 from __future__ import annotations
 
@@ -39,7 +45,10 @@ def describe(mesh) -> MeshDesc:
     """The `MeshDesc` of a `DeviceMesh` (a `MeshDesc` passes through)."""
     if isinstance(mesh, MeshDesc):
         return mesh
-    return MeshDesc(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape))
+    # sizes from `size(i)`: `mesh.mesh` builds a tensor, which a fake
+    # tensor mode would refuse
+    return MeshDesc(tuple(mesh.mesh_dim_names),
+                    tuple(mesh.size(i) for i in range(mesh.ndim)))
 
 
 def production_mesh_desc(*, multi_pod: bool = False) -> MeshDesc:
@@ -51,7 +60,7 @@ def production_mesh_desc(*, multi_pod: bool = False) -> MeshDesc:
 
 
 def device_type() -> str:
-    """"cuda" under an NCCL process group, else "cpu" (gloo)."""
+    """"cuda" under an NCCL process group, else "cpu" (gloo, fake)."""
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
@@ -75,11 +84,34 @@ def make_mesh(shape, axis_names) -> DeviceMesh:
             f"a process group of {n} ranks; found world size {world}"
             + ("" if dist.is_initialized() else " (no process group: start "
                "one, e.g. with torchrun)"))
-    key = (dist.group.WORLD, tuple(shape), tuple(axis_names))
+    # the backend in the key too: a fake group's mesh is never handed to a
+    # real group
+    key = (dist.group.WORLD, dist.get_backend(), tuple(shape),
+           tuple(axis_names))
     if key not in _MESHES:
         _MESHES[key] = init_device_mesh(device_type(), tuple(shape),
                                         mesh_dim_names=tuple(axis_names))
     return _MESHES[key]
+
+
+def make_fake_mesh(desc: MeshDesc) -> DeviceMesh:
+    """The mesh of `desc` on an in-process `fake` process group of
+    prod(desc.axis_sizes) ranks, this process rank 0. A fake group this
+    process opened before, of another size, is closed first; any other
+    open process group is an error."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    n = math.prod(desc.axis_sizes)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a fake mesh needs its own process group; this process "
+                f"already has a {dist.get_backend()!r} group open")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    return make_mesh(desc.axis_sizes, desc.axis_names)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:

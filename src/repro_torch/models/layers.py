@@ -252,11 +252,17 @@ def self_attention(p, x, cfg, rules=None, *, causal=None, use_rope=True,
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=cfg.sliding_window), (q, k, v), (_BSHD,) * 3)
     elif getattr(cfg, "attn_block", None):
-        o = _attn_core_chunked(q, k, v, positions, positions, causal,
-                               cfg.sliding_window, block=cfg.attn_block)
+        o = _per_shard(lambda q, k, v, pos: _attn_core_chunked(
+            q, k, v, pos, pos, causal, cfg.sliding_window,
+            block=cfg.attn_block), (q, k, v, positions),
+            (_BSHD, _BSHD, _BSHD, (0, None)))
     else:
+        # per shard under a mesh, as the kernel: DTensor would otherwise
+        # plan the 5-d score einsums itself, which on a 3-d mesh takes
+        # minutes a call
         bias = _mask_bias(positions, positions, causal, cfg.sliding_window)
-        o = _attn_core(q, k, v, bias)
+        o = _per_shard(_attn_core, (q, k, v, bias),
+                       (_BSHD, _BSHD, _BSHD, (0, None)))
     return _proj_out(p, o, rules), new_cache
 
 
@@ -292,7 +298,9 @@ def decode_attention(p, x, cfg, rules=None, *, cache, cache_index: int,
             q.contiguous(), ck, cv, bias), (q, ck, cv, bias),
             (_BSHD, _BSHD, _BSHD, (0, None)))
     else:
-        o = _attn_core(q, ck, cv, bias[:, None, :])
+        o = _per_shard(lambda q, ck, cv, bias: _attn_core(
+            q, ck, cv, bias[:, None, :]), (q, ck, cv, bias),
+            (_BSHD, _BSHD, _BSHD, (0, None)))
     return _proj_out(p, o, rules), {"k": ck, "v": cv}
 
 

@@ -16,12 +16,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.sharding.rules import reduce_partials, tp_only
+from repro_torch.sharding.rules import (residual_carry, tp_only,
+                                        vocab_parallel_embedding)
 from repro_torch.tree import tree_map
 
 
@@ -292,7 +292,8 @@ def _apply_block(p, spec, x, cfg, rules=None, *, cache=None,
     p = tree_map(tp_only, p)
     aux = None
     if spec["kind"] == "rwkv":
-        return _apply_rwkv_block(p, x, cfg, rules, cache, use_kernels), aux
+        return residual_carry(_apply_rwkv_block(p, x, cfg, rules, cache,
+                                             use_kernels), rules), aux
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec["kind"] == "mamba":
         st = cache["mamba"] if cache is not None else None
@@ -318,16 +319,16 @@ def _apply_block(p, spec, x, cfg, rules=None, *, cache=None,
                                     cache_index=0 if kvc_in is not None
                                     else None, use_kernels=use_kernels)
         if spec.get("cross"):            # whisper decoder cross-attn sublayer
-            x = x + o
+            x = residual_carry(x + o, rules)
             h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
             o = _cross(p["xattn"], h, cfg, rules, cache, mode, extra)
-    x = x + o
+    x = residual_carry(x + o, rules)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec["ffn"] == "moe":
         o, aux = L.moe_ffn(p["moe"], h, cfg.moe, rules)
     else:
         o = L.swiglu(p["ffn"], h, rules)
-    return x + o, aux
+    return residual_carry(x + o, rules), aux
 
 
 def _cross(p, h, cfg, rules, cache, mode, extra):
@@ -389,10 +390,10 @@ def _run_encoder(params, cfg, frames, rules=None, use_kernels=True):
 
 
 def _embed(params, cfg, tokens, rules=None):
-    x = F.embedding(tokens, tp_only(params["embed"]))
+    x = vocab_parallel_embedding(params["embed"], tokens)
     if rules is not None:
         return rules.cs(x, "act_bsd")
-    return reduce_partials(x)
+    return x
 
 
 def _unembed(params, cfg, x, rules=None):

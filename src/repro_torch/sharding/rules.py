@@ -23,8 +23,10 @@ import math
 import re
 from typing import Any
 
+import torch
+import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from repro_torch.launch.mesh import describe
@@ -188,8 +190,8 @@ def to_placements(spec, mesh) -> tuple:
 def tp_only(w):
     """A DTensor weight gathered over the batch axes, its "model" sharding
     kept: FSDP's all-gather before a use that DTensor does not shard
-    through (the embedding lookup of batch-sharded tokens). A plain tensor
-    passes through."""
+    through (norm scales, the embedding lookup, the unembedding). A plain
+    tensor passes through."""
     if not isinstance(w, DTensor):
         return w
     placements = tuple(
@@ -200,16 +202,74 @@ def tp_only(w):
     return w.redistribute(w.device_mesh, placements)
 
 
-def reduce_partials(x):
-    """A DTensor's pending partial sums reduced now (Replicate where it
-    was Partial); a plain tensor passes through. The vocab-parallel
-    embedding lookup leaves masked partial sums that DTensor cannot
-    reduce once other ops have run on them."""
-    if not isinstance(x, DTensor) or not any(p.is_partial()
-                                             for p in x.placements):
+def residual_carry(x, rules=None):
+    """The residual stream after a sublayer, as the next sublayer takes it
+    and its gradient as this one takes it back: in the table's layout for
+    "act_bsd" under `rules`, else with pending partial sums reduced
+    (Replicate where it was Partial), both ways; a plain tensor passes
+    through.
+
+    The reference's scan carries the residual in the embedding's layout.
+    Left to itself, DTensor carries the partial sums of a sublayer's last
+    projection into the next sublayer (and the partial gradients of a
+    sublayer's first projections back into the previous one), whose
+    matmuls then gather their weights over "model", less to send than
+    the activations, and every rank computes every rank's share."""
+    if not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p.is_partial() else p for p in x.placements])
+    if rules is not None:
+        x = rules.cs(x, "act_bsd")
+    elif any(p.is_partial() for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    # from_local's backward brings the gradient to these placements
+    return DTensor.from_local(x.to_local(grad_placements=x.placements),
+                              x.device_mesh, x.placements, shape=x.shape,
+                              stride=x.stride())
+
+
+def vocab_parallel_embedding(table, tokens):
+    """`F.embedding(tokens, table)`, vocab-parallel where `table` is a
+    DTensor whose rows are split over "model", as the reference's lookup
+    shards: the table is gathered over the batch axes only (`tp_only`),
+    each rank looks up the ids its rows hold (zeros for the others), and
+    one all-reduce over "model" sums the ranks' rows. The tokens keep
+    their placements over the batch axes (a plain tensor counts as
+    replicated). Other tables take the plain lookup.
+
+    DTensor's own sharding of this lookup leaves a masked partial sum
+    whose gradient torch 2.11 cannot take back ("Redistribution from one
+    partial type (P(sum)) to another (MaskP(...)) is unsupported"); this
+    one makes none: the partial sum is a plain one, reduced at once."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    w = tp_only(table)
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    if "model" not in names or w.placements[names.index("model")] != \
+            Shard(0):
+        return F.embedding(tokens, w)
+    mi = names.index("model")
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim)
+    tp = [Replicate() if i == mi else p
+          for i, p in enumerate(tokens.placements)]
+    if tuple(tp) != tuple(tokens.placements):
+        tokens = tokens.redistribute(mesh, tp)
+    rows = w.shape[0] // mesh.size(mi)      # the split divides (`_fit`)
+    ids = tokens.to_local() - mesh.get_local_rank(mi) * rows
+    hit = (ids >= 0) & (ids < rows)
+    # the local rows' gradient: a partial sum over the axes that split
+    # the tokens
+    grad = [Shard(0) if i == mi else Partial() if p.is_shard() else
+            Replicate() for i, p in enumerate(tp)]
+    x = F.embedding(ids.clamp(0, rows - 1), w.to_local(grad_placements=grad))
+    x = torch.where(hit[..., None], x, 0)
+    shape = (*tokens.shape, w.shape[1])
+    x = DTensor.from_local(
+        x, mesh, [Partial() if i == mi else p for i, p in enumerate(tp)],
+        shape=shape, stride=torch.empty(shape, device="meta").stride())
+    return x.redistribute(mesh, tp)
 
 
 def place(tree, specs, mesh):

@@ -1,5 +1,7 @@
 """Train and serve step factories (port of `repro.train.steps`:
-cross_entropy, make_train_step, make_prefill, make_serve_step).
+cross_entropy, make_train_step, make_prefill, make_serve_step, and the
+abstract inputs of the dry-run: input_specs, abstract_caches,
+abstract_state).
 
 Under a mesh (`rules` with a live `DeviceMesh`) the step takes the global
 view: the state's leaves are DTensors placed by `state_specs`, the batch
@@ -15,13 +17,14 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.collectives import compressed_pod_sync
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import (OptimizerConfig, TrainState,
-                                     adamw_update)
+                                     adamw_init, adamw_update)
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -29,13 +32,9 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 def cross_entropy(logits, labels, vocab_size: int):
     """Mean CE over tokens in float32; the padded vocab tail is masked
     out."""
-    logits = logits.float()
-    if isinstance(logits, DTensor):
-        # the gold logit is a gather along the vocab, which DTensor does
-        # not shard through: the vocab whole on every rank, sums complete
-        logits = logits.redistribute(logits.device_mesh, [
-            Replicate() if p.is_partial() or p == Shard(logits.ndim - 1)
-            else p for p in logits.placements])
+    # the gold logit is a gather along the vocab, which DTensor does not
+    # shard through
+    logits = _vocab_whole(logits.float())
     Vp = logits.shape[-1]
     if Vp != vocab_size:
         neg = torch.where(torch.arange(Vp, device=logits.device) < vocab_size,
@@ -44,6 +43,16 @@ def cross_entropy(logits, labels, vocab_size: int):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
     return torch.mean(logz - gold)
+
+
+def _vocab_whole(x):
+    """A DTensor of logits with the vocab (last) dim whole on every rank
+    and its partial sums complete; a plain tensor passes through."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() or p == Shard(x.ndim - 1) else p
+        for p in x.placements])
 
 
 def _mesh_context(tree):
@@ -210,9 +219,10 @@ def _compressed_pod_step(mesh, opt_cfg, lr_fn, grad_fn):
 
 def make_prefill(cfg: ModelConfig, rules=None, *, use_kernels=True):
     def prefill(params, caches, batch):
-        logits, _, caches = M.forward(params, cfg, batch["tokens"],
-                                      extra=batch.get("extra"), rules=rules,
-                                      caches=caches, use_kernels=use_kernels)
+        with _mesh_context(tree_leaves(params)):
+            logits, _, caches = M.forward(
+                params, cfg, batch["tokens"], extra=batch.get("extra"),
+                rules=rules, caches=caches, use_kernels=use_kernels)
         return logits[:, -1:], caches
     return prefill
 
@@ -225,13 +235,68 @@ def make_serve_step(cfg: ModelConfig, rules=None, *, use_kernels=True):
     vocab mask; the reference returns only (next_token, caches).
     """
     def serve_step(params, caches, token):
-        logits, caches = M.decode_step(params, cfg, token, caches,
-                                       rules=rules, use_kernels=use_kernels)
-        last = logits[:, -1]
-        scores = last.float()
-        Vp = scores.shape[-1]
-        if Vp != cfg.vocab_size:
-            pad = torch.arange(Vp, device=scores.device) >= cfg.vocab_size
-            scores = scores.masked_fill(pad, -1e30)
-        return scores.argmax(-1)[:, None], caches, last
+        with _mesh_context(tree_leaves(params)):
+            logits, caches = M.decode_step(params, cfg, token, caches,
+                                           rules=rules,
+                                           use_kernels=use_kernels)
+            last = logits[:, -1]
+            # argmax along a vocab split over "model" is not sharded
+            # through either (a batch of one broke DTensor's gather)
+            scores = _vocab_whole(last.float())
+            Vp = scores.shape[-1]
+            if Vp != cfg.vocab_size:
+                pad = torch.arange(Vp, device=scores.device) >= \
+                    cfg.vocab_size
+                scores = scores.masked_fill(pad, -1e30)
+            return scores.argmax(-1)[:, None], caches, last
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (dry-run / roofline)
+# ---------------------------------------------------------------------------
+# The reference's `jax.eval_shape` trees: FakeTensors made under a
+# FakeTensorMode of their own, so nothing is allocated. Keys, shapes and
+# dtypes are the reference's leaf for leaf.
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """FakeTensors for the *data* inputs of a step: tokens and labels
+    (train), tokens (prefill), each with `extra` image embeddings or audio
+    frames in the compute dtype for the cross-attention families; the
+    decode `token` (B, 1)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = M._dtype(cfg.compute_dtype)
+    with FakeTensorMode():
+        if shape.kind == "decode":
+            return {"token": torch.empty((B, 1), dtype=torch.int32)}
+        batch = {"tokens": torch.empty((B, S), dtype=torch.int32)}
+        if shape.kind == "train":
+            batch["labels"] = torch.empty((B, S), dtype=torch.int32)
+        extra = {}
+        if cfg.cross_attn_every:
+            extra["image_embeds"] = torch.empty(
+                (B, cfg.num_image_tokens, cfg.d_model), dtype=dt)
+        if cfg.encoder_layers:
+            extra["audio_frames"] = torch.empty(
+                (B, cfg.num_audio_frames, cfg.d_model), dtype=dt)
+        if extra:
+            batch["extra"] = extra
+        return batch
+
+
+def abstract_caches(cfg: ModelConfig, shape: ShapeConfig, tp: int,
+                    dtype=torch.bfloat16) -> dict:
+    """The FakeTensor tree of `models.model.init_caches` (`index` an
+    int)."""
+    with FakeTensorMode():
+        return M.init_caches(cfg, shape.global_batch, shape.seq_len, tp,
+                             dtype, device="cpu")
+
+
+def abstract_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, tp: int,
+                   with_ef: bool = False) -> TrainState:
+    """The FakeTensor tree of the full TrainState (`step` the int 0)."""
+    with FakeTensorMode():
+        params = M.init_params(torch.Generator().manual_seed(0), cfg, tp)
+        return adamw_init(params, opt_cfg, with_ef=with_ef)

@@ -553,3 +553,49 @@ def test_world1_nccl_gspmd_step_on_card(cuda_device, tmp_path):
     top = max(float(p.abs().max()) for p in pp)
     assert max(float((a - b).abs().max()) for a, b in zip(pm, pp)) \
         <= 1e-6 * top
+
+
+# ---------------------------------------------------------------------------
+# the water-fill solver on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("R,max_holds", [(1, 3), (257, 0), (4096, 7)])
+def test_waterfill_fold_on_card(cuda_device, R, max_holds):
+    """The capacity fold (`index_add_` of -m a hold on the card's atomics)
+    is bitwise the same fold on the CPU, nan, -0.0 and entries driven
+    below 0 included, and writes in place."""
+    from repro_torch.sim.alloc import subtract_holds_
+    rng = np.random.default_rng(R)
+    rem = rng.uniform(0.0, 2.0, size=R)
+    rem[: min(R, 2)] = [np.nan, -0.0][: min(R, 2)]
+    idx = rng.integers(0, R, size=R * max_holds + 1)
+    held = rng.random(idx.size) < 0.8
+    m = torch.tensor(0.3, dtype=torch.float64)
+    gold = subtract_holds_(torch.from_numpy(rem.copy()),
+                           torch.from_numpy(idx), torch.from_numpy(held), m)
+    t = torch.from_numpy(rem).to(cuda_device)
+    out = subtract_holds_(t, torch.from_numpy(idx).to(cuda_device),
+                          torch.from_numpy(held).to(cuda_device),
+                          m.to(cuda_device))
+    torch.cuda.synchronize()
+    assert out is t
+    assert out.cpu().numpy().tobytes() == gold.numpy().tobytes()
+
+
+@pytest.mark.parametrize("nf", [1, 192, 3000])
+def test_water_fill_on_card_bitwise(cuda_device, nf):
+    """vector_water_fill_torch on the card is bitwise the port's numpy
+    copy of the reference's allocator (integer capacities: ties)."""
+    from repro_torch.sim.alloc import (vector_water_fill,
+                                       vector_water_fill_torch)
+    rng = np.random.default_rng(nf)
+    nres = max(nf // 4, 1)
+    counts = rng.integers(1, 5, size=nf)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    indices = rng.integers(0, nres, size=int(counts.sum())).astype(np.int64)
+    cap = rng.integers(0, 9, size=nres).astype(np.float64)
+    want = vector_water_fill(indptr, indices, cap.copy())
+    got = vector_water_fill_torch(indptr, indices, cap.copy(),
+                                  device=cuda_device)
+    assert got.tobytes() == want.tobytes()

@@ -1,9 +1,10 @@
 """The port's sharding rules against `repro.sharding.rules`: param, state
 (float32 and int8) and cache specs, spec for spec, for every `ALL_ARCHS`
 entry on the production mesh descriptions (16, 16) and (2, 16, 16), and
-the activation table. The port's trees are built under FakeTensorMode
-(shapes only), the reference's by `jax.eval_shape`; no devices or ranks
-are needed."""
+the activation table. The port's trees are its dry-run's abstract trees
+(`repro_torch.train.steps.abstract_state` / `abstract_caches`, FakeTensors:
+shapes only), the reference's by `jax.eval_shape`; no devices or ranks are
+needed."""
 import functools
 
 import jax
@@ -11,8 +12,6 @@ import pytest
 from jax.sharding import PartitionSpec as JP
 
 torch = pytest.importorskip("torch")
-
-from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from repro.configs import ALL_ARCHS, SHAPES, get_config  # noqa: E402
 from repro.configs import supports_shape  # noqa: E402
@@ -24,13 +23,14 @@ from repro.sharding.rules import param_specs as jparam_specs  # noqa: E402
 from repro.sharding.rules import state_specs as jstate_specs  # noqa: E402
 from repro.train.steps import abstract_caches, abstract_state  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
+from repro_torch.configs.base import SHAPES as TSHAPES  # noqa: E402
 from repro_torch.core.streaming_checkpoint import _leaf_paths  # noqa: E402
 from repro_torch.launch.mesh import (MeshDesc, mesh_axes,  # noqa: E402
                                      production_mesh_desc)
-from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.optim import OptimizerConfig, adamw_init  # noqa: E402
+from repro_torch.optim import OptimizerConfig  # noqa: E402
 from repro_torch.sharding.rules import (ShardingRules, Spec,  # noqa: E402
                                         param_specs, state_specs)
+from repro_torch.train import steps as TS  # noqa: E402
 
 MESHES = {"single": (make_abstract_mesh((16, 16), ("data", "model")),
                      production_mesh_desc()),
@@ -47,10 +47,8 @@ def _jax_state(arch, sd):
 
 @functools.cache
 def _torch_state(arch, sd):
-    with FakeTensorMode():
-        params = TM.init_params(torch.Generator().manual_seed(0),
-                                tget_config(arch), tp=16)
-        return adamw_init(params, OptimizerConfig(**OPTS[sd]))
+    return TS.abstract_state(tget_config(arch), OptimizerConfig(**OPTS[sd]),
+                             16)
 
 
 def spec_leaves(tree) -> list:
@@ -127,10 +125,8 @@ def test_state_specs_with_ef_match_reference():
     arch = "h2o-danube-1.8b"
     jstate = abstract_state(get_config(arch), JOptimizerConfig(), 16,
                             with_ef=True)
-    with FakeTensorMode():
-        params = TM.init_params(torch.Generator().manual_seed(0),
-                                tget_config(arch), tp=16)
-        tstate = adamw_init(params, OptimizerConfig(), with_ef=True)
+    tstate = TS.abstract_state(tget_config(arch), OptimizerConfig(), 16,
+                               with_ef=True)
     for jmesh, tmesh in MESHES.values():
         for fsdp_pod in (True, False):
             want = _jax_specs(jstate, jstate_specs(jstate, jmesh,
@@ -154,9 +150,7 @@ def test_cache_specs_match_reference(arch, mesh):
             continue
         seq = sh.global_batch < 16
         jc = abstract_caches(jcfg, sh, 16)
-        with FakeTensorMode():
-            tc = TM.init_caches(tcfg, sh.global_batch, sh.seq_len, 16,
-                                device="cpu")
+        tc = TS.abstract_caches(tcfg, TSHAPES[name], 16)
         want = _jax_specs(jc, JRules(jmesh, seq_sharded=seq).cache_specs(jc))
         specs = ShardingRules(tmesh, seq_sharded=seq).cache_specs(tc)
         assert _torch_specs(tc, specs) == want
