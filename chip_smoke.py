@@ -117,7 +117,12 @@ order; any failure ends the run with a non-zero exit and no result line:
               state_specs) and again without a mesh from the same seed and
               batches, with the reference's test optimizer (lr DIST_LR):
               finite losses within DIST_LOSS_RTOL, the flash kernel
-              launched as often (24 x 2 a step). (b) the same model on a
+              launched as often (24 x 2 a step). Then the DIST_FAMILIES'
+              smoke variants (MoE, Mamba hybrid, RWKV6) in float32, plain
+              path, DIST_FAMILY_SHAPE: one train step and one prefill on
+              the (1, 1) mesh (the per-shard MoE, Mamba and WKV6 code)
+              against no mesh, loss and logits within LOSS_RTOL. (b) the
+              same model on a
               (1, 1, 1) ("pod", "data", "model") mesh with
               grad_sync="compressed_pod": losses within COMPRESSED_TOL of
               (a)'s meshed run, every ef leaf finite and some nonzero, and
@@ -152,7 +157,11 @@ order; any failure ends the run with a non-zero exit and no result line:
               PERF.md section 2's steady step). (c) `python
               -m repro_torch.launch.dryrun --arch h2o-danube-1.8b --shape
               train_4k --mesh both` in a subprocess (DRY_TIMEOUT) must exit
-              0; both records' roofline lines;
+              0; both records' roofline lines; then one more subprocess
+              traces DRY_CELLS (the MoE, Mamba, RWKV6 and whisper families'
+              production cells), each within DRY_CELL_TIMEOUT, all within
+              DRY_CELLS_TIMEOUT, and must exit 0: each cell's line, with
+              its model FLOPs over its traced FLOPs (`useful`);
 11. waterfill -- the water-fill solver on the card against the port's
               numpy copy of the reference's allocator, bitwise, at
               WATERFILL_FLOWS flows (integer capacities: ties), numpy and
@@ -298,6 +307,11 @@ DIST_LR = 1e-3
 # float32 params after the (1, 1) mesh's steps against the meshless
 # steps', over the largest |p|
 DIST_PARAM_TOL = 1e-6
+# the MoE, Mamba-hybrid and RWKV6 families' smoke variants on the (1, 1)
+# mesh against no mesh, float32, plain path: batch, seq (a whole number of
+# the Mamba and WKV6 chunks)
+DIST_FAMILIES = ("llama4-scout-17b-a16e", "jamba-v0.1-52b", "rwkv6-7b")
+DIST_FAMILY_SHAPE = (4, 64)
 # ElasticRunner: arch, batch, seq, batches, checkpoint every, failure at
 ELASTIC = ("lovelock-20m", 8, 256, 12, 4, 6)
 # the dryrun phase: the distributed phase's meshless train step (h2o-danube
@@ -310,6 +324,14 @@ DRY_MEM_RTOL = 0.10
 DRY_CLI = ["-m", "repro_torch.launch.dryrun", "--arch", "h2o-danube-1.8b",
            "--shape", "train_4k", "--mesh", "both"]
 DRY_TIMEOUT = 180          # seconds; ~36 s on the sandbox's CPU
+# the MoE, Mamba, RWKV6 and whisper families' production cells, traced by
+# one more CLI subprocess: each cell within DRY_CELL_TIMEOUT seconds, the
+# subprocess within DRY_CELLS_TIMEOUT
+DRY_CELLS = ("rwkv6-7b:prefill_32k:single", "jamba-v0.1-52b:train_4k:single",
+             "llama4-scout-17b-a16e:train_4k:multi",
+             "whisper-large-v3:prefill_32k:multi")
+DRY_CELL_TIMEOUT = 150
+DRY_CELLS_TIMEOUT = 300
 # the waterfill phase: random max-min instances at these flow counts, 1-4
 # holds a flow over flows / 4 resources of integer capacity 1-8 (so fair
 # shares tie), each solved by the port's numpy copy and on the card
@@ -1938,6 +1960,47 @@ def _compressed_replay(cfg, oc):
     return step
 
 
+def _family_parity(torch, arch, seed: int, mesh) -> dict:
+    """`arch`'s smoke variant in float32 on the plain path: one train step
+    and one prefill on `mesh` and with no mesh, from the same params and
+    batch; the losses' and the prefill logits' differences, relative."""
+    from repro_torch.configs import smoke_variant
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.sharding.rules import (ShardingRules, param_specs, place,
+                                            state_specs)
+    from repro_torch.train.steps import make_prefill, make_train_step
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(smoke_variant(_config(arch)),
+                              param_dtype="float32", compute_dtype="float32")
+    B, S = DIST_FAMILY_SHAPE
+    oc = OptimizerConfig(lr=DIST_LR)
+    params = M.init_params(torch.Generator(DEVICE).manual_seed(seed), cfg)
+    batch = _device_batch(torch, cfg, B, S, 0, seed)
+    rules = ShardingRules(mesh)
+    out = {}
+    for meshed in (True, False):
+        r = rules if meshed else None
+        state = adamw_init(tree_map(torch.clone, params), oc)
+        p = params
+        caches = M.init_caches(cfg, B, S, dtype=torch.float32, device=DEVICE)
+        if meshed:
+            state = place(state, state_specs(state, mesh), mesh)
+            p = place(params, param_specs(params, mesh), mesh)
+            caches = place(caches, rules.cache_specs(caches), mesh)
+        _, metrics = make_train_step(cfg, oc, r, use_kernels=False)(
+            state, batch)
+        logits, _ = make_prefill(cfg, r, use_kernels=False)(
+            p, caches, {"tokens": batch["tokens"]})
+        if meshed:
+            logits = logits.full_tensor()
+        out[meshed] = (float(metrics["loss"]), logits.float())
+    (lm, gm), (ln, gn) = out[True], out[False]
+    return {"loss_mesh": lm, "loss_none": ln, "loss_rel_err": _rel(lm, ln),
+            "logits_rel_err": float((gm - gn).abs().max()
+                                    / gn.abs().max())}
+
+
 def phase_distributed(torch, seed: int, card: str) -> tuple:
     """The sharded train step, the compressed cross-pod sync, elastic
     recovery and the all-reduce schedules on a world-1 NCCL group; returns
@@ -2001,6 +2064,20 @@ def phase_distributed(torch, seed: int, card: str) -> tuple:
             "losses_none": f32["none"]["losses"], "loss_rel_err": rel,
             "param_err": perr}
         del f32, got, want, batches
+
+        # (a) the MoE, Mamba and RWKV6 families' per-shard code on the
+        # (1, 1) mesh against no mesh
+        for arch in DIST_FAMILIES:
+            fam = _family_parity(torch, arch, seed, mesh2)
+            print(f"  {arch} smoke float32 {DIST_FAMILY_SHAPE}, plain path, "
+                  f"(1, 1) mesh vs none: train loss {fam['loss_mesh']:.6f}"
+                  f" / {fam['loss_none']:.6f} ({fam['loss_rel_err']:.3e} "
+                  f"relative), prefill logits {fam['logits_rel_err']:.3e} "
+                  f"of the largest |logit| (tol {LOSS_RTOL})")
+            if not (fam["loss_rel_err"] <= LOSS_RTOL
+                    and fam["logits_rel_err"] <= LOSS_RTOL):
+                _fail(f"{arch} smoke on a (1, 1) mesh: {fam}")
+            out[f"{arch} smoke float32"] = fam
 
         # (a) bf16, all 24 layers: the (1, 1) mesh, then no mesh
         B, S, steps = DIST
@@ -2174,7 +2251,8 @@ def phase_dryrun(torch, seed: int, card: str, dist_stats: dict) -> dict:
     """(a) The dry-run's trace of the distributed phase's meshless train
     step on the plain path, against one real step of it on the card;
     (b) the h2o train step's useful-FLOP share; (c) the production-mesh
-    dry-run of h2o-danube-1.8b at train_4k in a subprocess."""
+    dry-run of h2o-danube-1.8b at train_4k in a subprocess, and DRY_CELLS
+    in another."""
     import gc
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs.base import ShapeConfig
@@ -2264,6 +2342,34 @@ def phase_dryrun(torch, seed: int, card: str, dist_stats: dict) -> dict:
                                           "roofline")}
         print(f"  dry-run {mk}: {json.dumps(r['roofline'])}")
     print(f"  dry-run CLI: {cli_s:.1f} s")
+    # the MoE, Mamba, RWKV6 and whisper families' cells, in one more process
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+         *DRY_CELLS, "--cell-timeout", str(DRY_CELL_TIMEOUT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=DRY_CELLS_TIMEOUT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    cells_s = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("["):
+            print(f"    {ln}")
+    if proc.returncode != 0:
+        _fail(f"dry-run cells exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for cell in DRY_CELLS:
+        r = json.loads((ROOT / "artifacts" / "dryrun_torch" /
+                        f"{cell.replace(':', '__')}.json").read_text())
+        records[cell] = {k: r[k] for k in ("n_devices", "traced_mesh",
+                                           "lower_s", "arg_bytes",
+                                           "peak_temp_bytes", "collectives",
+                                           "roofline", "torch")}
+        roof = r["roofline"]
+        print(f"  dry-run {cell}: {roof['flops']:.4e} FLOPs a device, "
+              f"model FLOPs over traced {roof['useful_ratio']:.4f}, ICI "
+              f"{r['collectives']['ici_bytes']:.4e} B, DCN "
+              f"{r['collectives']['dcn_bytes']:.4e} B, trace "
+              f"{r['lower_s']} s, torch {r['torch']}")
+    print(f"  dry-run cells: {cells_s:.1f} s")
     return {"meshless": {"flops": flops, "trace_flops": roof["flops"],
                          "predicted_bytes": predicted,
                          "max_memory_allocated": peak,
@@ -2272,7 +2378,7 @@ def phase_dryrun(torch, seed: int, card: str, dist_stats: dict) -> dict:
                          "roofline": roof},
             "useful_flop_share": share, "meshless_step_s": steady,
             "roofline_step_time_s": step_time, "cli_s": cli_s,
-            "production": records}
+            "cells_s": cells_s, "production": records}
 
 
 def _waterfill_instance(np, rng, nf):

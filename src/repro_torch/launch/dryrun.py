@@ -5,6 +5,12 @@ costs that rank (twin of `repro.launch.dryrun`).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b \
         --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --cells \
+        rwkv6-7b:prefill_32k:single jamba-v0.1-52b:train_4k:single \
+        --cell-timeout 120
+
+(`--cells` names arch:shape:mesh triples; `--cell-timeout` fails a cell
+whose trace takes longer.)
 
 Nothing is allocated and no card is needed. The state, caches and batch
 are the abstract trees of `train/steps.py` turned into meta tensors, placed
@@ -42,9 +48,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import pathlib
+import signal
 import sys
 import time
 import weakref
@@ -124,12 +132,58 @@ def _tensors(x) -> list:
 def _storages(tree) -> list:
     """The distinct storages of `tree`'s tensors (a DTensor's: its local
     shard's)."""
+    if type(tree) is torch.Tensor:              # an op's usual output
+        return [tree.untyped_storage()]
     out = WeakIdKeyDictionary()
     for t in _tensors(tree_leaves(tree)):
         if isinstance(t, DTensor):
             t = t.to_local()
         out[t.untyped_storage()] = None
     return list(out.keys())
+
+
+@functools.cache
+def _decomposes(func) -> bool:
+    """Whether `func.decompose` has a decomposition to run (else it returns
+    NotImplemented)."""
+    dk = torch._C.DispatchKey.CompositeImplicitAutograd
+    return dk in func.py_kernels or \
+        torch._C._dispatch_has_kernel_for_dispatch_key(func.name(), dk)
+
+
+@functools.cache
+def _fresh_outputs(func) -> bool:
+    """Whether `func` returns only new tensors whose shapes, strides and
+    dtypes follow from its arguments' (an out-of-place op whose output
+    shape does not depend on the data)."""
+    schema = func._schema
+    return bool(schema.returns) and not schema.is_mutable and \
+        func.namespace not in _COLL_NAMESPACES and \
+        all(r.alias_info is None and str(r.type) == "Tensor"
+            for r in schema.returns) and \
+        not {torch.Tag.dynamic_output_shape,
+             torch.Tag.data_dependent_output} & set(func.tags)
+
+
+def _meta_key(x):
+    """A hashable stand-in for an op's argument that determines its
+    outputs' metadata (a meta tensor by its shape, strides and dtype);
+    None where there is none (a tensor not on meta, or an unhashable
+    argument)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta":
+            return None
+        return (tuple(x.shape), x.stride(), x.dtype)
+    if isinstance(x, (list, tuple)):
+        keys = tuple(_meta_key(y) for y in x)
+        return None if any(k is None for k in keys) else keys
+    if isinstance(x, dict):
+        return _meta_key(tuple(x.items()))
+    try:
+        hash(x)
+    except TypeError:
+        return None
+    return ("value", x)
 
 
 def _in_fake_mode() -> bool:
@@ -165,6 +219,10 @@ class StepCounter(TorchDispatchMode):
         self.peak = 0
         self._storages = WeakIdKeyDictionary()
         self._depth = 0           # inside a decomposition
+        # (op, arguments' metadata) -> its outputs' (shape, stride, dtype):
+        # a step repeats its ops on the same shapes (layer after layer,
+        # chunk after chunk), and a meta kernel costs more than a lookup
+        self._out_meta: dict = {}
 
     # ---- memory ----
 
@@ -238,7 +296,8 @@ class StepCounter(TorchDispatchMode):
         # where it can be, and its parts' FLOPs counted; its bytes and
         # memory are the whole op's, as it runs eagerly
         if func not in flop_registry and \
-                func is not torch.ops.prim.device.default:
+                func is not torch.ops.prim.device.default and \
+                _decomposes(func):
             self._depth += 1
             try:
                 with self:
@@ -248,7 +307,7 @@ class StepCounter(TorchDispatchMode):
             if out is not NotImplemented:
                 self._account(func, args, kwargs, out)
                 return out
-        out = func(*args, **kwargs)
+        out = self._run(func, args, kwargs)
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs,
@@ -256,21 +315,43 @@ class StepCounter(TorchDispatchMode):
         self._account(func, args, kwargs, out)
         return out
 
+    def _run(self, func, args, kwargs):
+        """func(*args, **kwargs) on meta tensors, its outputs made from
+        their metadata where `func` ran on the same before."""
+        key = _meta_key((args, kwargs)) if _fresh_outputs(func) else None
+        if key is None:
+            return func(*args, **kwargs)
+        metas = self._out_meta.get((func, key))
+        if metas is None:
+            out = func(*args, **kwargs)
+            self._out_meta[func, key] = [
+                (t.shape, t.stride(), t.dtype)
+                for t in (out if isinstance(out, tuple) else (out,))]
+            return out
+        outs = tuple(torch.empty_strided(shape, stride, dtype=dtype,
+                                         device="meta")
+                     for shape, stride, dtype in metas)
+        return outs if len(func._schema.returns) > 1 else outs[0]
+
     def _account(self, func, args, kwargs, out) -> None:
         """Bytes, collectives and memory of one op run eagerly (not of the
         parts of a decomposition)."""
         if self._depth:
             return
+        view = any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns)
         if func.namespace in _COLL_NAMESPACES:
             if func._overloadpacket.__name__ in _COLLECTIVES:
                 self._collective(func, args, kwargs, out)
-        elif not any(r.alias_info is not None and not r.alias_info.is_write
-                     for r in func._schema.returns):
+        elif not view:
             # a view moves nothing; everything else reads its inputs and
             # writes its outputs once (no fusion)
             self.hbm_bytes += sum(t.nbytes for t in _tensors((args, kwargs)))
             self.hbm_bytes += sum(t.nbytes for t in _tensors(out))
-        self.track(out)
+        if not view:
+            # nor does it allocate: a view of a storage made outside the
+            # step (a tensor a process-wide cache holds) is not the step's
+            self.track(out)
 
 
 def _meta(tree):
@@ -318,7 +399,7 @@ def traced_desc(desc: MeshDesc, grad_sync="gspmd") -> MeshDesc:
 
 def cell_inputs(cfg, shape: ShapeConfig, desc: MeshDesc | None, *,
                 opt_cfg: OptimizerConfig, grad_sync="gspmd", remat=True,
-                fsdp=True) -> tuple:
+                fsdp=True, tp=None) -> tuple:
     """(step, args) of one cell, on meta tensors: the step of `shape`'s
     kind on the plain path, its arguments placed as DTensors over a
     `make_fake_mesh` of `traced_desc(desc)` (None: one device, no mesh;
@@ -326,12 +407,14 @@ def cell_inputs(cfg, shape: ShapeConfig, desc: MeshDesc | None, *,
     dry-run places them: the train state by `state_specs`, params by
     `param_specs` (FSDP off for decode with `fsdp=False`), caches by
     `cache_specs`, the batch over ("pod", "data") (whole for the compressed
-    pod sync, which splits it itself)."""
+    pod sync, which splits it itself). Heads are padded for `tp` ranks
+    (default: the mesh's "model" axis, 1 without a mesh)."""
     live = desc is not None
     if live:
         desc = traced_desc(desc, grad_sync)
     mesh = make_fake_mesh(desc) if live else None
-    tp = desc.shape["model"] if live else 1
+    if tp is None:
+        tp = desc.shape["model"] if live else 1
     rules = None
     if live:
         dp = math.prod(desc.shape[n] for n in ("pod", "data")
@@ -475,39 +558,49 @@ def main():
     ap.add_argument("--compute-dtype", default=None)
     ap.add_argument("--attn-block", type=int, default=None)
     ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--cells", nargs="+", default=None,
+                    help="arch:shape:mesh triples, in place of the "
+                    "--arch / --shape / --mesh grid")
+    ap.add_argument("--cell-timeout", type=int, default=0,
+                    help="fail a cell whose trace takes longer (seconds)")
     args = ap.parse_args()
 
     cells = []
     archs = ALL_ARCHS if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    todo = ([tuple(c.split(":")) for c in args.cells] if args.cells else
+            [(a, s, m) for a in archs for s in shapes for m in meshes])
+
+    def expired(*_):
+        raise TimeoutError(f"trace over {args.cell_timeout} s")
+    signal.signal(signal.SIGALRM, expired)
     fails = 0
     try:
-        for arch in archs:
-            for shape in shapes:
-                for mk in meshes:
-                    try:
-                        rec = run_cell(arch, shape, mk,
-                                       grad_sync=args.grad_sync,
-                                       tag=args.tag,
-                                       remat=not args.no_remat,
-                                       attn_block=args.attn_block,
-                                       compute_dtype=args.compute_dtype)
-                    except Exception as e:  # noqa: BLE001
-                        rec = {"arch": arch, "shape": shape, "mesh": mk,
-                               "status": "fail",
-                               "error": f"{type(e).__name__}: {e}"}
-                        fails += 1
-                    cells.append(rec)
-                    r = rec.get("roofline", {})
-                    print(f"[{rec['status']:7s}] {arch:24s} {shape:12s} "
-                          f"{mk:6s} trace={rec.get('lower_s', '-')}s "
-                          f"bottleneck={r.get('bottleneck', '-')} "
-                          f"step={1e3 * max(r.get('t_compute', 0), r.get('t_memory', 0), r.get('t_collective', 0)):.1f}ms "
-                          f"roof={r.get('roofline_fraction', 0):.3f} "
-                          f"torch={rec.get('torch', torch.__version__)} "
-                          f"{rec.get('reason', rec.get('error', ''))}"[:200],
-                          flush=True)
+        for arch, shape, mk in todo:
+            signal.alarm(args.cell_timeout)
+            try:
+                rec = run_cell(arch, shape, mk, grad_sync=args.grad_sync,
+                               tag=args.tag, remat=not args.no_remat,
+                               attn_block=args.attn_block,
+                               compute_dtype=args.compute_dtype)
+            except Exception as e:  # noqa: BLE001
+                rec = {"arch": arch, "shape": shape, "mesh": mk,
+                       "status": "fail", "error": f"{type(e).__name__}: {e}"}
+                fails += 1
+            finally:
+                signal.alarm(0)
+            cells.append(rec)
+            r = rec.get("roofline", {})
+            print(f"[{rec['status']:7s}] {arch:24s} {shape:12s} "
+                  f"{mk:6s} trace={rec.get('lower_s', '-')}s "
+                  f"bottleneck={r.get('bottleneck', '-')} "
+                  f"step={1e3 * max(r.get('t_compute', 0), r.get('t_memory', 0), r.get('t_collective', 0)):.1f}ms "
+                  f"roof={r.get('roofline_fraction', 0):.3f} "
+                  f"useful={r.get('useful_ratio', 0):.4f} "
+                  f"torch={rec.get('torch', torch.__version__)} "
+                  f"{rec.get('reason', rec.get('error', ''))}"[:240],
+                  flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -17,8 +17,11 @@ Conventions
   PyTorch on both, as they are plain jnp in the reference.
 * `rules` is an optional `ShardingRules`; `rules.cs(x, logical)`
   redistributes an activation at the reference's constraint points. Under
-  a mesh the tensors are DTensors, and an attention kernel runs on each
-  rank's shard (`_per_shard`).
+  a mesh the tensors are DTensors. Attention, the WKV6 recurrence and the
+  Mamba conv and scan run on each rank's shard (`_per_shard`), and so do
+  the MoE's routing, dispatch and combine (`_moe_sharded`), so that no
+  rank computes another's share beyond what the reference's specs leave
+  whole: the router over "model", the expert FFNs over the batch axes.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.rwkv6 import ops as wops
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked as _wkv6_chunked
+from repro_torch.sharding.rules import residual_carry
 
 NEG_BIG = -1e30
 
@@ -137,21 +141,24 @@ def _attn_core(q, k, v, bias):
     return _einsum("bkgst,btkd->bskgd", w, v).reshape(B, Sq, Hq, dh)
 
 
-# (row dim, head dim) of a kernel operand, None where it has none
+# (row dim, channel dim) of a per-shard operand, None where it has none
 _BSHD = (0, 2)          # attention q, k, v, caches: (B, S, H, d)
 _BHSD = (0, 1)          # wkv6 r, k, v, logw, out, state: (B, H, S, d)
+_BSI = (0, 2)           # mamba dt, xin, y, conv state: (B, S, I)
 
 
 def _per_shard(fn, operands, dims, out_dims=None):
     """fn(*operands) on plain tensors; where operands[0] is a DTensor, on
-    each rank's shard. An operand's `dims` entry names its (row, head)
-    dims: rows are split over the mesh's pod / data axes and heads over
-    "model", where every operand's dims divide. Attention and the WKV6
-    recurrence are independent per row and per head, so the shards'
-    outputs, placed by `out_dims` (each output's dims; by default fn
-    returns one tensor placed as operands[0]), are the outputs' shards.
-    The kernels take plain tensors, so this keeps them on the mesh's
-    path.
+    each rank's shard. An operand's `dims` entry names its (row, channel)
+    dims: rows are split over the mesh's pod / data axes and channels
+    (attention and WKV6 heads, Mamba's inner channels) over "model",
+    where every operand's dims divide. Attention, the WKV6 recurrence and
+    the Mamba conv and scan are independent per row and per channel, so
+    the shards' outputs, placed by `out_dims` (each output's dims; by
+    default fn returns one tensor placed as operands[0]), are the outputs'
+    shards. The kernels take plain tensors, so this keeps them on the
+    mesh's path; the plain forms run here too, where DTensor would
+    otherwise propagate each of their many small ops.
 
     This is `torch.distributed.tensor.experimental.local_map` with its
     placements computed here, for two reasons: they depend on which axes
@@ -166,20 +173,21 @@ def _per_shard(fn, operands, dims, out_dims=None):
     rows = [n for n in names if n in ("pod", "data")]
     nrows = math.prod(sizes[n] for n in rows)
     pairs = list(zip(operands, dims))
-    split_rows = all(t.shape[r] % nrows == 0 for t, (r, _) in pairs
-                     if r is not None)
-    split_heads = "model" in names and all(
-        t.shape[h] % sizes["model"] == 0 for t, (_, h) in pairs
-        if h is not None)
+    rowed = [(t, r) for t, (r, _) in pairs if r is not None]
+    chans = [(t, c) for t, (_, c) in pairs if c is not None]
+    split_rows = bool(rowed) and all(t.shape[r] % nrows == 0
+                                     for t, r in rowed)
+    split_chans = "model" in names and bool(chans) and all(
+        t.shape[c] % sizes["model"] == 0 for t, c in chans)
 
     def placements(d, grad=False):
         """An operand's placements; with `grad`, its gradient's: partial
         sums over the axes that split the other operands and not it."""
-        row, head = d
+        row, chan = d
         out = []
         for n in names:
             split, dim = ((split_rows, row) if n in rows else
-                          (split_heads, head) if n == "model" else
+                          (split_chans, chan) if n == "model" else
                           (False, None))
             out.append(Replicate() if not split else
                        Shard(dim) if dim is not None else
@@ -215,6 +223,18 @@ def _proj_out(p, o, rules=None):
     return out
 
 
+def _write_slots(cache, idx, new):
+    """cache[:, idx] = new (in the cache's dtype), in place. Under a mesh
+    on each rank's shard, `new` in the cache's placements first (torch
+    2.11's DTensor has no sharding for this index write); the slot dim of
+    a prefill's cache is not split."""
+    new = new.to(cache.dtype)
+    if isinstance(cache, DTensor):
+        new = new.redistribute(cache.device_mesh, cache.placements)
+        cache, new = cache.to_local(), new.to_local()
+    cache[:, idx] = new
+
+
 def self_attention(p, x, cfg, rules=None, *, causal=None, use_rope=True,
                    kv_cache=None, cache_index=None, use_kernels=True):
     """Self-attention over a full sequence (prefill).
@@ -240,12 +260,12 @@ def self_attention(p, x, cfg, rules=None, *, causal=None, use_rope=True,
         ar = torch.arange(min(S, W), device=x.device)
         if S >= W:                       # ring smaller than prefill: keep tail
             widx = ((cache_index + S - W) % W + ar) % W
-            ck[:, widx] = k[:, -W:].to(ck.dtype)
-            cv[:, widx] = v[:, -W:].to(cv.dtype)
+            _write_slots(ck, widx, k[:, -W:])
+            _write_slots(cv, widx, v[:, -W:])
         else:
             widx = (cache_index + ar) % W
-            ck[:, widx] = k.to(ck.dtype)
-            cv[:, widx] = v.to(cv.dtype)
+            _write_slots(ck, widx, k)
+            _write_slots(cv, widx, v)
         new_cache = {"k": ck, "v": cv}
     if use_kernels:
         o = _per_shard(lambda q, k, v: fops.flash_attention(
@@ -310,7 +330,8 @@ def cross_attention(p, x, cfg, rules=None, *, kv=None, cache=None):
     Either `kv` (source activations (B,T,D), prefill: k and v are projected
     from it and returned as the new {k, v}) or `cache` ({k, v} precomputed,
     decode: only q is projected) must be given. No mask and no rope; the
-    plain `_attn_core`, as in the reference, which runs no kernel here.
+    plain `_attn_core`, as in the reference, which runs no kernel here
+    (per shard under a mesh, as self-attention's plain path).
     Returns (out, {k, v}); `out` is scaled by tanh(gate) where p has a
     `gate` (llama-3.2-vision's gated cross-attention layers).
     """
@@ -326,7 +347,9 @@ def cross_attention(p, x, cfg, rules=None, *, kv=None, cache=None):
         q = rules.cs(q, "act_bshd")
     bias = torch.zeros((B, S, k.shape[1]), dtype=torch.float32,
                        device=x.device)
-    out = _proj_out(p, _attn_core(q, k, v, bias), rules)
+    o = _per_shard(_attn_core, (q, k, v, bias),
+                   (_BSHD, _BSHD, _BSHD, (0, None)))
+    out = _proj_out(p, o, rules)
     if "gate" in p:
         out = out * torch.tanh(p["gate"]).to(out.dtype)
     return out, {"k": k, "v": v}
@@ -346,13 +369,19 @@ def swiglu(p, x, rules=None):
     return _einsum("bsf,fd->bsd", h, p["w_down"])
 
 
-def _moe_route(p, xt, moe_cfg):
+def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
     """Shared routing: returns (gate_vals, expert_ids, pos, C, probs).
 
     Router logits in float32 (a bf16 `xt` times the float32 router
     promotes); top-k of the softmax, renormalised; each (token, k)'s
     position within its expert counted in (k-major, token) order; gates of
     positions past the capacity C are 0.
+
+    On one rank's rows of a larger batch, C comes from the batch's
+    `n_tokens`, and `offsets(counts)` maps this rank's (K, E) choice
+    counts to what each (k, e) position must add: the choices of (k, e)
+    on the earlier ranks and of (k' < k, e) on the other ranks. The
+    positions are then the whole batch's (`_moe_sharded`).
     """
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     N = xt.shape[0]
@@ -361,10 +390,14 @@ def _moe_route(p, xt, moe_cfg):
     gate_vals, expert_ids = torch.topk(probs, K, dim=-1)          # (N,K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    C = max(1, int(moe_cfg.capacity_factor * K * N / E))
+    C = max(1, int(moe_cfg.capacity_factor * K * (n_tokens or N) / E))
     onehot = F.one_hot(expert_ids, E)                             # (N,K,E)
     flat = onehot.transpose(0, 1).reshape(K * N, E)
     pos_flat = torch.cumsum(flat, dim=0) - flat                   # (K*N,E)
+    if offsets is not None:
+        pos_flat = (pos_flat.reshape(K, N, E)
+                    + offsets(flat.reshape(K, N, E).sum(1))[:, None, :]
+                    ).reshape(K * N, E)
     pos = (pos_flat.reshape(K, N, E).transpose(0, 1) * onehot).sum(-1)
     keep = (pos < C).to(gate_vals.dtype)
     return gate_vals * keep, expert_ids, pos, C, probs
@@ -401,52 +434,151 @@ def moe_ffn(p, x, moe_cfg, rules=None):
     Tokens past an expert's capacity are dropped (their gate is 0).
     """
     B, S, D = x.shape
-    E, K = moe_cfg.num_experts, moe_cfg.top_k
-    N = B * S
-    xt = x.reshape(N, D)
-    gate_vals, expert_ids, pos, C, probs = _moe_route(p, xt, moe_cfg)
+    if isinstance(x, DTensor):
+        out, aux = _moe_sharded(p, x, moe_cfg, rules)
+    else:
+        xt = x.reshape(B * S, D)
+        gate_vals, expert_ids, pos, C, probs = _moe_route(p, xt, moe_cfg)
+        out = _moe_experts(xt, gate_vals, expert_ids, pos, C,
+                           range(moe_cfg.num_experts), moe_cfg.dispatch,
+                           lambda xe: _expert_ffn(p, xe, rules))
+        out = out.reshape(B, S, D)
 
-    if moe_cfg.dispatch == "scatter":
-        slot = expert_ids * C + pos                               # (N,K)
-        slot = torch.where(gate_vals > 0, slot, E * C)           # overflow bin
-        xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+        def aux():
+            return _moe_aux(expert_ids, probs, moe_cfg)
+    if "shared" in p:
+        out = out + swiglu(p["shared"], x, rules)
+    # the loss last, as the reference orders it: a remat recompute runs
+    # as far as the last tensor the backward saved
+    return out, aux()
+
+
+def _moe_experts(xt, gate_vals, expert_ids, pos, C, experts, dispatch, ffn):
+    """The share of the experts `experts` (a range of ids) in the routed
+    output of the tokens `xt` (N, D): the tokens dispatched into their
+    (len(experts), C, D) slots, `ffn` on the slots, and the slots combined
+    back by the gates. Choices of other experts, and positions past C,
+    add nothing."""
+    N, D = xt.shape
+    K = expert_ids.shape[1]
+    El, e0 = len(experts), experts.start
+    if dispatch == "scatter":
+        here = (gate_vals > 0) & (expert_ids >= e0) & (expert_ids < e0 + El)
+        slot = torch.where(here, (expert_ids - e0) * C + pos,
+                           El * C)                        # overflow bin
+        xe = torch.zeros((El * C + 1, D), dtype=xt.dtype, device=xt.device)
         xe.index_add_(0, slot.reshape(-1),
                       xt[:, None, :].expand(N, K, D).reshape(-1, D))
-        xe = xe[:E * C].reshape(E, C, D)
-        if rules is not None:
-            xe = rules.cs(xe, "moe_ecd")
-        ye = _expert_ffn(p, xe, rules)
-        back = ye.reshape(E * C, D)[
-            torch.clamp(slot, 0, E * C - 1).reshape(-1)].reshape(N, K, D)
-        out = torch.sum(back * gate_vals[..., None].to(back.dtype), dim=1)
-    elif moe_cfg.dispatch == "einsum":
-        # dispatch / combine tensors (N,E,C) built one k at a time. The
+        ye = ffn(xe[:El * C].reshape(El, C, D))
+        back = ye.reshape(El * C, D)[
+            torch.clamp(slot, 0, El * C - 1).reshape(-1)].reshape(N, K, D)
+        gates = torch.where(here, gate_vals, 0)
+        return torch.sum(back * gates[..., None].to(back.dtype), dim=1)
+    if dispatch == "einsum":
+        # dispatch / combine tensors (N,El,C) built one k at a time. The
         # reference's one_hot(pos, C) is a zero row for pos >= C, which is
         # how overflow tokens drop out: the comparison with arange(C) gives
-        # the same zero row (F.one_hot would raise instead)
+        # the same zero row (F.one_hot would raise instead); the comparison
+        # with the ids of `experts` is its one_hot(expert_ids, E) there
+        ids = torch.arange(e0, e0 + El, device=xt.device)
         slots = torch.arange(C, device=xt.device)
-        xe = torch.zeros((E, C, D), dtype=xt.dtype, device=xt.device)
-        combine = torch.zeros((N, E, C), dtype=torch.float32,
+        xe = torch.zeros((El, C, D), dtype=xt.dtype, device=xt.device)
+        combine = torch.zeros((N, El, C), dtype=torch.float32,
                               device=xt.device)
         for k in range(K):
-            d_k = (F.one_hot(expert_ids[:, k], E).to(xt.dtype)[:, :, None]
+            d_k = ((expert_ids[:, k, None] == ids).to(xt.dtype)[:, :, None]
                    * (pos[:, k, None] == slots).to(xt.dtype)[:, None, :])
             d_k = d_k * (gate_vals[:, k] > 0)[:, None, None].to(xt.dtype)
             xe = xe + _einsum("nec,nd->ecd", d_k, xt)
             combine = combine + (d_k.float()
                                  * gate_vals[:, k, None, None])
             del d_k
-        if rules is not None:
-            xe = rules.cs(xe, "moe_ecd")
-        ye = _expert_ffn(p, xe, rules)
-        out = _einsum("nec,ecd->nd", combine.to(ye.dtype), ye)
-    else:
-        raise ValueError(f"unknown MoE dispatch {moe_cfg.dispatch!r}")
+        ye = ffn(xe)
+        return _einsum("nec,ecd->nd", combine.to(ye.dtype), ye)
+    raise ValueError(f"unknown MoE dispatch {dispatch!r}")
 
-    out = out.reshape(B, S, D)
-    if "shared" in p:
-        out = out + swiglu(p["shared"], x, rules)
-    return out, _moe_aux(expert_ids, probs, moe_cfg)
+
+def _mesh_rows(mesh):
+    """(row axes, their product, this rank's index along them): the mesh's
+    pod / data axes, which split a batch's rows, pod-major."""
+    names = mesh.mesh_dim_names
+    rows = [n for n in names if n in ("pod", "data")]
+    index = 0
+    for n in rows:
+        index = index * mesh.size(names.index(n)) + mesh.get_local_rank(n)
+    return rows, math.prod(mesh.size(names.index(n)) for n in rows), index
+
+
+def _moe_sharded(p, x, moe_cfg, rules=None):
+    """`moe_ffn`'s routed experts under a mesh, each rank on its own shard
+    as the reference's specs place the work. A rank routes its own rows
+    of tokens (the router whole on every "model" rank) at the positions
+    the whole batch gives them: it adds the earlier ranks' choice counts
+    (one all-gather of K x E integers over the batch axes), so the routes,
+    overflow included, are one device's. It dispatches its tokens into
+    the slots of its "model" rank's experts; the slots, summed over the
+    batch axes, take `moe_ecd`'s layout, where the expert FFNs run (whole
+    over the batch axes); and it combines its tokens from its experts'
+    outputs, a partial sum over "model". The gates' gradient is summed
+    over "model" before the router's backward, which then runs whole on
+    every "model" rank, as its forward. Returns (out, a function that
+    gives the load-balance loss), as DTensors."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    E, K = moe_cfg.num_experts, moe_cfg.top_k
+    B, S, D = x.shape
+    rows, nrows, r = _mesh_rows(mesh)
+    nmodel = mesh.size(names.index("model")) if "model" in names else 1
+    R = Replicate()
+    split_rows = nrows > 1 and B % nrows == 0
+    split_experts = nmodel > 1 and E % nmodel == 0
+    rsplit, rpart = (Shard(0), Partial()) if split_rows else (R, R)
+    msplit, mpart = (Shard(0), Partial()) if split_experts else (R, R)
+
+    def pl(row, model):
+        return tuple(row if n in rows else model if n == "model" else R
+                     for n in names)
+
+    x = x.redistribute(mesh, pl(rsplit, R))
+    router = p["router"].redistribute(mesh, pl(R, R)).to_local(
+        grad_placements=pl(rpart, R))
+
+    def offsets(counts):
+        every = DTensor.from_local(counts[None], mesh, pl(rsplit, R))
+        every = every.full_tensor()                          # (nrows,K,E)
+        other = every.sum(0) - counts
+        return torch.cumsum(other, 0) - other + every[:r].sum(0)
+    gate_vals, expert_ids, pos, C, probs = _moe_route(
+        {"router": router}, x.to_local(grad_placements=pl(rsplit, R))
+        .reshape(-1, D), moe_cfg, n_tokens=B * S,
+        offsets=offsets if split_rows else None)
+    # the combine below uses the gates of this rank's experts only
+    gates = DTensor.from_local(gate_vals, mesh, pl(rsplit, R)).to_local(
+        grad_placements=pl(rsplit, mpart))
+    El = E // nmodel if split_experts else E
+    e0 = mesh.get_local_rank("model") * El if split_experts else 0
+
+    def ffn(xe):
+        xe = DTensor.from_local(xe, mesh, pl(rpart, msplit), shape=(E, C, D),
+                                stride=(C * D, D, 1))
+        ye = _expert_ffn(p, xe.redistribute(mesh, pl(R, msplit)), rules)
+        return ye.redistribute(mesh, pl(R, msplit)).to_local(
+            grad_placements=pl(rpart, msplit))
+    out = _moe_experts(x.to_local(grad_placements=pl(rsplit, mpart))
+                       .reshape(-1, D), gates, expert_ids, pos, C,
+                       range(e0, e0 + El), moe_cfg.dispatch, ffn)
+    out = DTensor.from_local(out.reshape(-1, S, D), mesh, pl(rsplit, mpart),
+                             shape=(B, S, D), stride=(S * D, D, 1))
+
+    def aux():
+        """The load-balance loss from the batch's means (of the first
+        choices and the probabilities): this rank's sums, summed over the
+        batch axes."""
+        f, pm = (DTensor.from_local(t, mesh, pl(rpart, R)) / (B * S)
+                 for t in (F.one_hot(expert_ids[:, 0], E).float().sum(0),
+                           probs.sum(0)))
+        return E * torch.sum(f * pm) * moe_cfg.aux_loss_weight
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +600,16 @@ def _scan_pairs(a, b):
         a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
         s *= 2
     return a, b
+
+
+def _causal_conv(xin, conv_state, w, b):
+    """Mamba's depthwise causal conv over the sequence (len(w) taps, in the
+    reference's order) of xin (B,S,I) after `conv_state`, the dc - 1
+    inputs before it. Returns (silu(conv + b), the new conv state)."""
+    S, dc = xin.shape[1], w.shape[0]
+    ctx = torch.cat([conv_state, xin], dim=1)             # (B,dc-1+S,I)
+    conv = sum(ctx[:, i:i + S] * w[i] for i in range(dc))
+    return F.silu(conv + b), ctx[:, ctx.shape[1] - (dc - 1):]
 
 
 def _mamba_ssm_chunked(dt, A, Bm, Cm, xin, h0):
@@ -514,32 +656,44 @@ def mamba(p, x, cfg, rules=None, *, state=None):
     m = cfg.mamba
     B, S, D = x.shape
     I = m.expand * D
-    xz = _einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = xz[..., :I], xz[..., I:]
+    w = p["in_proj"]
+    w_x, w_z = w[:, :I], w[:, I:]
+    if isinstance(w, DTensor):
+        # a rank's columns of in_proj fall in xin's or in z's half: each
+        # half, gathered, takes the weight's layout again, so that xin
+        # and z come out split over "model" with their gradients
+        w_x, w_z = (t.redistribute(w.device_mesh, w.placements)
+                    for t in (w_x, w_z))
+    xin = _einsum("bsd,de->bse", x, w_x)
+    z = _einsum("bsd,de->bse", x, w_z)
     if rules is not None:
         xin = rules.cs(xin, "act_bsf")
         z = rules.cs(z, "act_bsf")
-    # depthwise causal conv over seq (dc taps), in the reference's order
+    # depthwise causal conv over seq (dc taps), per row and channel
     dc = m.d_conv
-    if state is not None:
-        ctx = torch.cat([state["conv"], xin], dim=1)      # (B,dc-1+S,I)
-    else:
-        ctx = F.pad(xin, (0, 0, dc - 1, 0))
-    conv = sum(ctx[:, i:i + S] * p["conv_w"][i] for i in range(dc))
-    xin_c = F.silu(conv + p["conv_b"])
-    new_conv = ctx[:, -(dc - 1):] if dc > 1 else ctx[:, :0]
+    conv_state = state["conv"] if state is not None else torch.zeros(
+        (B, dc - 1, I), dtype=xin.dtype, device=x.device)
+    xin_c, new_conv = _per_shard(
+        _causal_conv, (xin, conv_state, p["conv_w"], p["conv_b"]),
+        (_BSI, _BSI, (None, 1), (None, 0)), out_dims=(_BSI, _BSI))
 
     R = p["dt_proj"].shape[0]
     N = m.d_state
-    dbc = _einsum("bsi,ir->bsr", xin_c, p["x_proj"])
+    # a partial sum over "model" (I is split): reduced both ways, so that
+    # neither dt's projection nor x_proj's backward gathers a weight
+    dbc = residual_carry(_einsum("bsi,ir->bsr", xin_c, p["x_proj"]), rules)
     dt_r, Bm, Cm = dbc[..., :R], dbc[..., R:R + N], dbc[..., R + N:]
     dt = F.softplus(_einsum("bsr,ri->bsi", dt_r, p["dt_proj"])
                     + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     h0 = state["ssm"] if state is not None else torch.zeros(
         (B, I, N), dtype=torch.float32, device=x.device)
-    y, h_last = _mamba_ssm_chunked(dt.float(), A, Bm.float(), Cm.float(),
-                                   xin_c.float(), h0)
+    # per row and inner channel: Bm and Cm are whole on every "model" rank
+    y, h_last = _per_shard(
+        _mamba_ssm_chunked, (dt.float(), A, Bm.float(), Cm.float(),
+                             xin_c.float(), h0),
+        (_BSI, (None, 0), (0, None), (0, None), _BSI, (0, 1)),
+        out_dims=(_BSI, (0, 1)))
     y = y.to(x.dtype) + xin_c * p["Dskip"]
     y = y * F.silu(z)
     out = _einsum("bsi,id->bsd", y, p["out_proj"])
@@ -559,10 +713,10 @@ def _lora(x, p, act=torch.tanh):
 
 def _shifted(x, state):
     """x shifted one token right: the previous token at each position,
-    `state` (B,1,D) or zeros before the first."""
-    if state is not None:
-        return torch.cat([state, x[:, :-1]], dim=1)
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    `state` (B,1,D) or zeros before the first (a concatenation, not a
+    pad: torch 2.11's DTensor fails to plan the pad)."""
+    first = torch.zeros_like(x[:, :1]) if state is None else state
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 def rwkv_time_mix(p, x, cfg, rules=None, *, state=None, use_kernels=True):
@@ -599,7 +753,9 @@ def rwkv_time_mix(p, x, cfg, rules=None, *, state=None, use_kernels=True):
     else:
         S0 = state["wkv"] if state is not None else torch.zeros(
             (B, H, hd, hd), dtype=torch.float32, device=x.device)
-        out, S_fin = _wkv6_chunked(rf, kf, vf, logw, uf, S0)
+        out, S_fin = _per_shard(
+            _wkv6_chunked, (rf, kf, vf, logw, uf, S0),
+            (_BHSD,) * 4 + ((None, 0), _BHSD), out_dims=(_BHSD, _BHSD))
     # group norm per head (population variance)
     out = out.permute(0, 2, 1, 3)                             # (B,S,H,hd)
     mu_ = out.mean(-1, keepdim=True)

@@ -352,7 +352,7 @@ def _apply_rwkv_block(p, x, cfg, rules, cache, use_kernels):
     o, tm_state = L.rwkv_time_mix(p["time_mix"], h, cfg, rules,
                                   state=None if cache is None else
                                   cache["tm"], use_kernels=use_kernels)
-    x = x + o
+    x = residual_carry(x + o, rules)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     o, cm_state = L.rwkv_channel_mix(p["channel_mix"], h,
                                      state=None if cache is None else

@@ -207,7 +207,8 @@ def residual_carry(x, rules=None):
     and its gradient as this one takes it back: in the table's layout for
     "act_bsd" under `rules`, else with pending partial sums reduced
     (Replicate where it was Partial), both ways; a plain tensor passes
-    through.
+    through. Another activation whose partial sums must not travel on
+    (Mamba's x_proj output) takes the same treatment.
 
     The reference's scan carries the residual in the embedding's layout.
     Left to itself, DTensor carries the partial sums of a sublayer's last

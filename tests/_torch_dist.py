@@ -481,3 +481,114 @@ def rank_train_loop_compressed(steps):
                          pod_mesh=2, data_mesh=2, model_mesh=2,
                          grad_sync="compressed_pod")
     return info["losses"]
+
+
+def rank_serve_parity(arch, shape, names, B=8, S=16, steps=4):
+    """A prefill of B x S tokens and `steps` greedy decode steps of `arch`'s
+    smoke variant in float32, on a mesh of `shape` / `names` (params by
+    `param_specs`, caches by `cache_specs`, the batch by its rows) and on
+    one device, from the same params, prompt and extras: each run's
+    tokens, and each logit row's largest difference over its largest
+    |logit| (the prefill's last position, then each step's)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import ShardingRules, param_specs, place
+    from repro_torch.train.steps import make_prefill, make_serve_step
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    cfg = _cfg(arch, True)
+    mesh = make_mesh(tuple(shape), tuple(names))
+    rules = ShardingRules(mesh)
+    tp = dict(zip(names, shape)).get("model", 1)
+    params = _live_gates(M.init_params(torch.Generator().manual_seed(0), cfg,
+                                       tp=tp))
+    batch = _batches(cfg, 1, B, S)[0]
+    del batch["labels"]
+    runs = {}
+    for meshed in (True, False):
+        r = rules if meshed else None
+        caches = M.init_caches(cfg, B, S + steps, tp=tp, dtype=torch.float32,
+                               device="cpu")
+        p, b = params, batch
+        if meshed:
+            p = place(params, param_specs(params, mesh), mesh)
+            caches = place(caches, rules.cache_specs(caches), mesh)
+            b = rules.shard_batch(batch)
+        logits, caches = make_prefill(cfg, r, use_kernels=False)(p, caches,
+                                                                 b)
+        rows = [whole(logits[:, -1])]
+        tokens = [rows[0][:, :cfg.vocab_size].argmax(-1)[:, None]]
+        step = make_serve_step(cfg, r, use_kernels=False)
+        for _ in range(steps):
+            tok, caches, last = step(p, caches, tokens[-1])
+            rows.append(whole(last))
+            tokens.append(whole(tok))
+        runs[meshed] = (rows, tokens)
+    errs = [_max_rel(a, b) for a, b in zip(runs[True][0], runs[False][0])]
+    return {"errs": errs,
+            "tokens": [t.flatten().tolist() for t in runs[True][1]],
+            "ref_tokens": [t.flatten().tolist() for t in runs[False][1]]}
+
+
+def moe_route_inputs(seed, B=8, S=16, D=32, E=4, Fd=24, skew=2.0):
+    """x (B, S, D) float32 and MoE params (router (D, E) float32, expert
+    weights) whose router pulls the tokens toward expert 0 by `skew`."""
+    rng = np.random.default_rng(seed)
+    common = rng.standard_normal(D).astype(np.float32)
+    x = (rng.standard_normal((B, S, D)) + common).astype(np.float32)
+    router = rng.standard_normal((D, E)).astype(np.float32) * 0.3
+    router[:, 0] += skew * common / np.linalg.norm(common) ** 2
+    p = {"router": router,
+         "w_gate": rng.standard_normal((E, D, Fd)).astype(np.float32) * 0.2,
+         "w_up": rng.standard_normal((E, D, Fd)).astype(np.float32) * 0.2,
+         "w_down": rng.standard_normal((E, Fd, D)).astype(np.float32) * 0.2}
+    return x, p
+
+
+def rank_moe_routes(seed, K, capacity_factor, dispatch):
+    """`moe_ffn` on `moe_route_inputs(seed)` with top-K routing at
+    `capacity_factor`, on a (2, 2) mesh (the tokens split by rows over
+    "data", the experts over "model") and on one device: this rank's row
+    index, the routes it computed on the mesh and the one-device routes
+    (expert_ids, positions, kept), the two outputs' largest difference
+    over the largest |output|, and the two load-balance losses."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.sharding.rules import ShardingRules
+    mesh = make_mesh((2, 2), ("data", "model"))
+    x, p = moe_route_inputs(seed)
+    x, p = torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in p.items()}
+    E = p["router"].shape[1]
+    moe_cfg = MoEConfig(num_experts=E, top_k=K, d_ff=p["w_up"].shape[2],
+                        capacity_factor=capacity_factor, dispatch=dispatch)
+    seen = []
+    route = L._moe_route
+
+    def recorded(*args, **kwargs):
+        out = route(*args, **kwargs)
+        _, ids, pos, C, _ = out
+        seen.append({"ids": ids.tolist(), "pos": pos.tolist(),
+                     "kept": (pos < C).tolist()})
+        return out
+    L._moe_route = recorded
+    try:
+        want, want_aux = L.moe_ffn(p, x, moe_cfg)
+        placed = {k: distribute_tensor(v, mesh, [Replicate(), Replicate()]
+                                       if k == "router" else
+                                       [Replicate(), Shard(0)])
+                  for k, v in p.items()}
+        xd = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+        got, got_aux = L.moe_ffn(placed, xd, moe_cfg, ShardingRules(mesh))
+    finally:
+        L._moe_route = route
+    got = got.full_tensor()
+    return {"row": mesh.get_local_rank("data"), "mesh": seen[1],
+            "one_device": seen[0],
+            "out_err": float((got - want).abs().max() / want.abs().max()),
+            "aux": [float(got_aux.full_tensor()), float(want_aux)]}

@@ -15,6 +15,7 @@ from repro_torch.launch import train as ttrain  # noqa: E402
 
 LIMIT = 120        # seconds, for every multi-rank test
 LOSS_RTOL = 1e-5   # float32 losses: the same sums in another order
+FFN_RTOL = 1e-5    # float32 MoE outputs, as tests/test_torch_moe.py
 
 
 def test_mesh_and_placements(tmp_path):
@@ -80,6 +81,52 @@ def test_every_family_on_a_mesh_matches_single_device(tmp_path, arch):
         np.testing.assert_allclose(r["losses"], r["ref_losses"],
                                    rtol=LOSS_RTOL)
         assert r["param_err"] < 1e-3, r
+
+
+@pytest.mark.parametrize("arch", [
+    "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
+    "rwkv6-7b", "llama-3.2-vision-90b", "whisper-large-v3"])
+def test_serving_on_a_mesh_matches_single_device(tmp_path, arch):
+    """The MoE, Mamba-hybrid, RWKV6 and cross-attention families' smoke
+    variants, float32, served on a (2, 2) mesh: a prefill of 8 x 16 tokens
+    and 4 greedy decode steps, each logit row within 1e-5 of one device's
+    largest |logit|, and the same tokens. The VLM's gate is 1 and the
+    cross-attention families get random extras."""
+    for r in run_ranks(4, "rank_serve_parity", tmp_path, arch, [2, 2],
+                       ["data", "model"], timeout=LIMIT):
+        assert len(r["errs"]) == 5 and max(r["errs"]) < LOSS_RTOL, r["errs"]
+        assert r["tokens"] == r["ref_tokens"]
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_routes_with_overflow_on_a_mesh(tmp_path, dispatch):
+    """Top-2 routing at capacity factor 0.5 (tokens overflow) on a (2, 2)
+    mesh, the tokens split by rows over "data": each rank's (expert_ids,
+    positions, kept) for its rows equal one device's and the reference's
+    `_moe_route` on the same numpy inputs (positions counted over the
+    whole batch), the outputs within 1e-5 and the load-balance losses
+    within 1e-6 of one device's."""
+    import jax.numpy as jnp
+    from _torch_dist import moe_route_inputs
+    from repro.configs.base import MoEConfig as JMoEConfig
+    from repro.models import layers as JL
+    x, p = moe_route_inputs(0)
+    B, S, D = x.shape
+    _, ids, pos, C, _ = JL._moe_route(
+        {"router": jnp.asarray(p["router"])}, jnp.asarray(x.reshape(-1, D)),
+        JMoEConfig(num_experts=p["router"].shape[1], top_k=2,
+                   d_ff=p["w_up"].shape[2], capacity_factor=0.5))
+    want = {"ids": np.asarray(ids).tolist(), "pos": np.asarray(pos).tolist(),
+            "kept": (np.asarray(pos) < C).tolist()}
+    assert not all(k for row in want["kept"] for k in row)    # overflow
+    rows = B * S // 2
+    for r in run_ranks(4, "rank_moe_routes", tmp_path, 0, 2, 0.5, dispatch,
+                       timeout=LIMIT):
+        assert r["one_device"] == want
+        sl = slice(r["row"] * rows, (r["row"] + 1) * rows)
+        assert r["mesh"] == {k: v[sl] for k, v in want.items()}
+        assert r["out_err"] < FFN_RTOL, r["out_err"]
+        assert abs(r["aux"][0] - r["aux"][1]) <= 1e-6 * abs(r["aux"][1])
 
 
 def test_train_loop_on_mesh_matches_single_device(tmp_path):
