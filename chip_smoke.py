@@ -179,6 +179,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1057,6 +1058,33 @@ def _timed(torch, targets):
             setattr(m, n, fn)
 
 
+@contextlib.contextmanager
+def _steps_timed(torch, serve_module):
+    """Time each step made by `serve_module.make_serve_step` (the factory
+    `serve` calls) with CUDA events, for the `with` block only; yields
+    the [(start, end)] of the steps in order (read after a
+    synchronize)."""
+    real = serve_module.make_serve_step
+    steps = []
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def call(*args, **kwargs):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = step(*args, **kwargs)
+            e.record()
+            steps.append((s, e))
+            return out
+        return call
+    serve_module.make_serve_step = make
+    try:
+        yield steps
+    finally:
+        serve_module.make_serve_step = real
+
+
 def _span_ms(spans) -> dict:
     return {n: sum(a.elapsed_time(b) for a, b in v) for n, v in spans.items()}
 
@@ -1268,23 +1296,33 @@ def _serve_counted(torch, cfg, params, prompts, extra, want, targets=()):
     before the run and read just after: the counts must equal `want`;
     tokens, logits and their shapes are checked. `targets` are timed
     during the run (see `_timed`). Returns (tokens, stats, logits,
-    launches, peak memory GB, the targets' ms)."""
+    launches, peak memory GB, the targets' ms); `stats` are serve's, with
+    the first and the steady decode step, each step timed by a CUDA event
+    pair around it (`repro_torch.obs` stays off: its spans would add
+    their own cost to a host-bound step)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch import serve as S
     B, P = prompts.shape
     torch.cuda.reset_peak_memory_stats()
     fops.flash_attention.launches = 0
     dops.decode_attention.launches = 0
-    with _timed(torch, targets) as spans:
-        tokens, stats, logits = serve(cfg, batch=B, prompt_len=P, gen=GEN,
-                                      use_kernels=True, device=DEVICE,
-                                      params=params, prompts=prompts,
-                                      extra=extra)
+    with _timed(torch, targets) as spans, _steps_timed(torch, S) as steps:
+        tokens, stats, logits = S.serve(
+            cfg, batch=B, prompt_len=P, gen=GEN, use_kernels=True,
+            device=DEVICE, params=params, prompts=prompts, extra=extra)
+    torch.cuda.synchronize()
+    # the first decode step pays first-use costs (lazy loads, library
+    # heuristics for the new shapes); the steady step is the median of
+    # the others
+    step_s = [a.elapsed_time(b) / 1e3 for a, b in steps]
+    steady = statistics.median(step_s[1:])
+    stats = dict(stats, decode_first_step_s=step_s[0],
+                 decode_steady_step_s=steady,
+                 decode_steady_tokens_per_s=B / steady)
     launches = {"flash_attention": fops.flash_attention.launches,
                 "decode_attention": dops.decode_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    torch.cuda.synchronize()
     print(f"  launches {launches} (expected {want})")
     if launches != want:
         _fail(f"serve {cfg.name} launched {launches}, expected {want}")

@@ -21,14 +21,18 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import time
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.models import model as M
 from repro_torch.train.steps import make_prefill, make_serve_step
+
+# the batch id of each `serve` call's spans (`obs`)
+_BATCH_IDS = itertools.count()
 
 
 def _clock(dev: torch.device) -> float:
@@ -84,35 +88,28 @@ def serve(cfg, *, batch, prompt_len, gen, seed=0, use_kernels=True,
     prefill = make_prefill(cfg, use_kernels=use_kernels)
     step = make_serve_step(cfg, use_kernels=use_kernels)
 
-    with torch.no_grad():
+    with torch.no_grad(), obs.span("serve.batch", batch=next(_BATCH_IDS),
+                                   B=batch, prompt_len=prompt_len, gen=gen):
         t0 = _clock(dev)
-        logits, caches = prefill(params, caches, batch_in)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        t_prefill = _clock(dev) - t0
+        with obs.span("serve.prefill"):
+            logits, caches = prefill(params, caches, batch_in)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            t_prefill = _clock(dev) - t0
 
         out, picked = [tok], [logits[:, -1].float()]
         t0 = _clock(dev)
-        t_first = 0.0
         for i in range(gen - 1):
-            tok, caches, last = step(params, caches, tok)
+            with obs.span("serve.decode_step", step=i):
+                tok, caches, last = step(params, caches, tok)
             out.append(tok)
             picked.append(last.float())
-            if i == 0:
-                t_first = _clock(dev) - t0
         t_decode = _clock(dev) - t0
     stats = {
         "prefill_s": t_prefill,
         "prefill_tokens_per_s": batch * prompt_len / t_prefill,
         "decode_s": t_decode,
         "decode_tokens_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
-        # the first decode step pays first-use costs (lazy loads, library
-        # heuristics for the new shapes); the steady state excludes it
-        "decode_first_step_s": t_first,
     }
-    if gen > 2:
-        stats["decode_steady_step_s"] = (t_decode - t_first) / (gen - 2)
-        stats["decode_steady_tokens_per_s"] = (
-            batch / max(stats["decode_steady_step_s"], 1e-9))
     return torch.cat(out, dim=1), stats, torch.stack(picked, dim=1)
 
 

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.rwkv6 import ops as wops
@@ -400,7 +401,16 @@ def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
                     ).reshape(K * N, E)
     pos = (pos_flat.reshape(K, N, E).transpose(0, 1) * onehot).sum(-1)
     keep = (pos < C).to(gate_vals.dtype)
-    return gate_vals * keep, expert_ids, pos, C, probs
+    gate_vals = gate_vals * keep
+    if n_tokens is None and obs.enabled():
+        # a route over the whole batch (a rank's rows count nothing),
+        # counted when the records are drained: nothing is launched here
+        g = gate_vals.detach()
+        obs.count("moe.kept", lambda: (g > 0).sum())
+        obs.count("moe.slots", E * C)
+        obs.count("moe.experts_hit",
+                  lambda: expert_ids[g > 0].unique().numel())
+    return gate_vals, expert_ids, pos, C, probs
 
 
 def _moe_aux(expert_ids, probs, moe_cfg):
@@ -423,6 +433,7 @@ def _expert_ffn(p, xe, rules=None):
     return ye
 
 
+@obs.spanned("model.moe", timed=True)
 def moe_ffn(p, x, moe_cfg, rules=None):
     """Token-choice top-k MoE.
 
@@ -438,7 +449,9 @@ def moe_ffn(p, x, moe_cfg, rules=None):
         out, aux = _moe_sharded(p, x, moe_cfg, rules)
     else:
         xt = x.reshape(B * S, D)
-        gate_vals, expert_ids, pos, C, probs = _moe_route(p, xt, moe_cfg)
+        with obs.span("model.moe.route", timed=True,
+                      experts=moe_cfg.num_experts):
+            gate_vals, expert_ids, pos, C, probs = _moe_route(p, xt, moe_cfg)
         out = _moe_experts(xt, gate_vals, expert_ids, pos, C,
                            range(moe_cfg.num_experts), moe_cfg.dispatch,
                            lambda xe: _expert_ffn(p, xe, rules))
@@ -469,7 +482,8 @@ def _moe_experts(xt, gate_vals, expert_ids, pos, C, experts, dispatch, ffn):
         xe = torch.zeros((El * C + 1, D), dtype=xt.dtype, device=xt.device)
         xe.index_add_(0, slot.reshape(-1),
                       xt[:, None, :].expand(N, K, D).reshape(-1, D))
-        ye = ffn(xe[:El * C].reshape(El, C, D))
+        with obs.span("model.moe.experts", timed=True):
+            ye = ffn(xe[:El * C].reshape(El, C, D))
         back = ye.reshape(El * C, D)[
             torch.clamp(slot, 0, El * C - 1).reshape(-1)].reshape(N, K, D)
         gates = torch.where(here, gate_vals, 0)
@@ -493,7 +507,8 @@ def _moe_experts(xt, gate_vals, expert_ids, pos, C, experts, dispatch, ffn):
             combine = combine + (d_k.float()
                                  * gate_vals[:, k, None, None])
             del d_k
-        ye = ffn(xe)
+        with obs.span("model.moe.experts", timed=True):
+            ye = ffn(xe)
         return _einsum("nec,ecd->nd", combine.to(ye.dtype), ye)
     raise ValueError(f"unknown MoE dispatch {dispatch!r}")
 
@@ -548,10 +563,11 @@ def _moe_sharded(p, x, moe_cfg, rules=None):
         every = every.full_tensor()                          # (nrows,K,E)
         other = every.sum(0) - counts
         return torch.cumsum(other, 0) - other + every[:r].sum(0)
-    gate_vals, expert_ids, pos, C, probs = _moe_route(
-        {"router": router}, x.to_local(grad_placements=pl(rsplit, R))
-        .reshape(-1, D), moe_cfg, n_tokens=B * S,
-        offsets=offsets if split_rows else None)
+    with obs.span("model.moe.route", timed=True, experts=E):
+        gate_vals, expert_ids, pos, C, probs = _moe_route(
+            {"router": router}, x.to_local(grad_placements=pl(rsplit, R))
+            .reshape(-1, D), moe_cfg, n_tokens=B * S,
+            offsets=offsets if split_rows else None)
     # the combine below uses the gates of this rank's experts only
     gates = DTensor.from_local(gate_vals, mesh, pl(rsplit, R)).to_local(
         grad_placements=pl(rsplit, mpart))
@@ -642,6 +658,7 @@ def _mamba_ssm_chunked(dt, A, Bm, Cm, xin, h0):
     return torch.cat(ys, dim=1), h
 
 
+@obs.spanned("model.mamba")
 def mamba(p, x, cfg, rules=None, *, state=None):
     """Mamba-1 selective SSM block.
 
@@ -689,11 +706,12 @@ def mamba(p, x, cfg, rules=None, *, state=None):
     h0 = state["ssm"] if state is not None else torch.zeros(
         (B, I, N), dtype=torch.float32, device=x.device)
     # per row and inner channel: Bm and Cm are whole on every "model" rank
-    y, h_last = _per_shard(
-        _mamba_ssm_chunked, (dt.float(), A, Bm.float(), Cm.float(),
-                             xin_c.float(), h0),
-        (_BSI, (None, 0), (0, None), (0, None), _BSI, (0, 1)),
-        out_dims=(_BSI, (0, 1)))
+    with obs.span("model.mamba.scan", timed=True):
+        y, h_last = _per_shard(
+            _mamba_ssm_chunked, (dt.float(), A, Bm.float(), Cm.float(),
+                                 xin_c.float(), h0),
+            (_BSI, (None, 0), (0, None), (0, None), _BSI, (0, 1)),
+            out_dims=(_BSI, (0, 1)))
     y = y.to(x.dtype) + xin_c * p["Dskip"]
     y = y * F.silu(z)
     out = _einsum("bsi,id->bsd", y, p["out_proj"])

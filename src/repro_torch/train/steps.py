@@ -20,6 +20,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.collectives import compressed_pod_sync
 from repro_torch.models import model as M
@@ -91,12 +92,17 @@ def make_grad_fn(cfg: ModelConfig, rules=None, *, use_kernels=True,
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(live)
         with _mesh_context(leaves):
-            logits, aux, _ = M.forward(live, cfg, batch["tokens"],
-                                       extra=batch.get("extra"),
-                                       rules=rules, use_kernels=use_kernels,
-                                       remat=remat)
-            ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
-            grads = torch.autograd.grad(ce + aux, leaves)
+            with obs.span("train.forward"):
+                logits, aux, _ = M.forward(live, cfg, batch["tokens"],
+                                           extra=batch.get("extra"),
+                                           rules=rules,
+                                           use_kernels=use_kernels,
+                                           remat=remat)
+                ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+                loss = ce + aux
+            # under remat the periods' recomputed forward runs in here
+            with obs.span("train.backward", timed=True):
+                grads = torch.autograd.grad(loss, leaves)
         grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
         return ({"loss": _full(ce.detach()), "aux": _full(aux.detach())},
                 tree_unflatten(params, grads))
@@ -152,11 +158,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                            microbatches=microbatches)
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        if live:
-            batch = rules.shard_batch(batch)
-        metrics, grads = grad_fn(state.params, batch)
-        with _mesh_context(grads):
-            state = adamw_update(state, grads, opt_cfg, lr_fn)
+        with obs.span("train.step", step=state.step):
+            if live:
+                batch = rules.shard_batch(batch)
+            metrics, grads = grad_fn(state.params, batch)
+            with _mesh_context(grads), obs.span("train.optimizer",
+                                                timed=True):
+                state = adamw_update(state, grads, opt_cfg, lr_fn)
         return state, metrics
     return train_step
 

@@ -19,8 +19,10 @@ frames and a 224-token prompt, and llama-3.2-vision-90b cut to one period
 --smoke` rehearses the script on smoke variants). It prints one
 JSON line per model: every prefill's seconds (the first is the one
 chip_smoke.py reads: the first at its shapes in the process), their
-minimum and median, and the steady decode step. A last line prints each
-root's readings side by side.
+minimum and median, and the steady decode step (the median of the steps
+past the first, each step timed around its call by CUDA events, by the
+host clock on the CPU: the same in every checkout, with the program's
+own tracing off). A last line prints each root's readings side by side.
 """
 from __future__ import annotations
 
@@ -41,9 +43,10 @@ def child(root: Path, reps: int, gen: int, device: str,
 
     import torch
     from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch import serve as S
     from repro_torch.models import model as M
     dev = device
+    step_s = _time_steps(torch, S, dev)
     for arch, layers, prompt, key in (
             ("whisper-large-v3", None, WH_PROMPT, "audio_frames"),
             ("llama-3.2-vision-90b", VLM_LAYERS, VLM_PROMPT,
@@ -69,16 +72,54 @@ def child(root: Path, reps: int, gen: int, device: str,
                           ).to(torch.bfloat16)
         prefill, steady = [], []
         for _ in range(reps):
-            _, stats, _ = serve(cfg, batch=BATCH, prompt_len=prompt, gen=gen,
-                                device=dev, params=params, prompts=prompts,
-                                extra={key: src})
+            _, stats, _ = S.serve(cfg, batch=BATCH, prompt_len=prompt,
+                                  gen=gen, device=dev, params=params,
+                                  prompts=prompts, extra={key: src})
             prefill.append(stats["prefill_s"])
-            steady.append(stats.get("decode_steady_step_s"))
+            steps = step_s()
+            steady.append(statistics.median(steps[1:])
+                          if len(steps) > 1 else None)
         print(json.dumps({"root": str(root), "arch": arch,
                           "prefill_s": prefill, "min": min(prefill),
                           "median": statistics.median(prefill),
                           "decode_steady_step_s": steady}), flush=True)
         del params
+
+
+def _time_steps(torch, S, dev):
+    """Makes `serve` (module `S`) time each decode step: its factory
+    `make_serve_step` is wrapped for the rest of the process. Returns a
+    function that gives the seconds of the steps since its last call."""
+    import time
+    real, marks = S.make_serve_step, []
+
+    def mark():
+        if dev != "cuda":
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def call(*args, **kwargs):
+            start = mark()
+            out = step(*args, **kwargs)
+            marks.append((start, mark()))
+            return out
+        return call
+    S.make_serve_step = make
+
+    def taken():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            out = [s.elapsed_time(e) / 1e3 for s, e in marks]
+        else:
+            out = [e - s for s, e in marks]
+        marks.clear()
+        return out
+    return taken
 
 
 def main() -> int:
