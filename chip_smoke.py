@@ -36,7 +36,13 @@ order; any failure ends the run with a non-zero exit and no result line:
               distributed phase's train shapes (h2o-danube-1.8b at
               4 x 2048 and 4 x 512) in both dtypes; flash and decode
               attention also at the examples phase's shapes
-              (`_example_shapes`);
+              (`_example_shapes`); the Mamba scan (from a nonzero h0; dt,
+              Bm, Cm and xin in float32 and in bf16, one launch a call) on
+              MAMBA_SWEEP and at jamba-v0.1-52b's prefill shape against
+              its plain form on float32 copies to 1e-5, its gradient
+              (autograd of the plain form) against plain autograd, and
+              kernel and plain form timed by CUDA events (the kernel also
+              device-only);
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -55,7 +61,8 @@ order; any failure ends the run with a non-zero exit and no result line:
               of 32 layers: Mamba, MoE and one attention layer; random bf16
               weights from --seed): batch 4, prompt 4096, 32 generated
               tokens, through the kernels; check the launch counts (one
-              flash launch, 31 decode launches). Teacher-force the same
+              flash launch, 31 decode launches, 7 scan launches in the
+              prefill and in each decode step). Teacher-force the same
               tokens through the plain path in bf16, recording every
               expert choice of both paths: no choice may differ upstream
               of the attention layer (the paths run the same code there),
@@ -263,6 +270,13 @@ WKV6_TOL = 1e-4
 # under near-perfect memory (logw = -1e-6) the outputs of N(0,1) inputs
 # reach ~|40| after 128 tokens: float32 rounding of those, relative
 WKV6_STABLE_RTOL = 1e-5
+# the Mamba scan (tests/test_torch_cuda.py's sweep): one token, a ragged 7,
+# 300 and 4,096 tokens, I off the kernel's 32-channel blocks; from a
+# nonzero h0, held to the port's 1e-5 (tests/test_torch_mamba.py)
+MAMBA_SWEEP = [(2, 1, 64, 16), (2, 7, 40, 16), (1, 300, 100, 16),
+               (2, 512, 96, 16), (1, 4096, 64, 16), (3, 33, 32, 16),
+               (1, 65, 72, 16)]           # B, S, I, N
+SSM_TOL = 1e-5
 # the train phase
 RWKV = "rwkv6-7b"
 LOVELOCK = ("lovelock-20m", 8, 256, 3)        # arch, batch, seq, steps
@@ -692,11 +706,13 @@ def phase_kernels(torch, seed: int) -> list:
                                          qt, ct)
 
     wkv = _wkv6_kernel(torch, gen)
+    ssm = _mamba_kernel(torch, gen)
 
     bad = []
     for name, cases in (("flash_attention", flash_cases),
                         ("decode_attention", decode_cases),
-                        ("wkv6", wkv["cases"])):
+                        ("wkv6", wkv["cases"]),
+                        ("mamba_scan", ssm["cases"])):
         for c in cases:
             print(f"  {name} {c['dtype']:>14} {str(c['shape']):<40} "
                   f"max_abs_err {c['max_abs_err']:.3e}, beyond the "
@@ -729,6 +745,17 @@ def phase_kernels(torch, seed: int) -> list:
           f"|g| (tol {WKV6_TOL})")
     if not wkv["grad_err"] <= WKV6_TOL:
         _fail(f"wkv6: gradient off by {wkv['grad_err']} of its largest |g|")
+    for dt in ("torch.bfloat16", "torch.float32"):
+        t = ssm[dt]
+        print(f"  mamba_scan at {ssm['shape']} {dt}: {t['ms']:.4f} ms "
+              f"(bound {t['bound_ms']:.4f} ms by {t['bound_by']}; device "
+              f"only {_fmt(t['device_ms'])} ms)")
+    print(f"  mamba_scan: plain form {ssm['plain_ms']:.3f} ms, no library "
+          f"call computes the selective scan; gradient vs plain autograd "
+          f"{ssm['grad_err']:.3e} of the largest |g| (tol {SSM_TOL})")
+    if not ssm["grad_err"] <= SSM_TOL:
+        _fail(f"mamba_scan: gradient off by {ssm['grad_err']} of its "
+              f"largest |g|")
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -772,6 +799,18 @@ def phase_kernels(torch, seed: int) -> list:
          "shape": wkv["shape"], "grad_err": wkv["grad_err"],
          "fwd_bwd_ms": wkv["fwd_bwd_ms"],
          "cases": wkv["cases"]},
+        {"name": "mamba_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+         "replaces": None,
+         "replaces_note": "no Pallas kernel: the reference scans with "
+                          "lax.associative_scan",
+         "launches": None, "max_abs_err": ssm["cases"][-1]["max_abs_err"],
+         **ssm["torch.bfloat16"], "plain_ms": ssm["plain_ms"],
+         "at_float32": ssm["torch.float32"],
+         "library_ms": None, "library_device_ms": None,
+         "library_note": "no PyTorch call computes the selective scan",
+         "shape": ssm["shape"], "grad_err": ssm["grad_err"],
+         "cases": ssm["cases"]},
     ]
 
 
@@ -859,6 +898,81 @@ def _wkv6_kernel(torch, gen) -> dict:
             "fwd_bwd_ms": train_ms, "device_ms": device_ms}
 
 
+def _ssm_inputs(torch, gen, B, S, I, N, dtype):
+    """dt, A, Bm, Cm, xin, h0 of the Mamba scan as the port's tests make
+    them: dt in (0, 0.5), A = -(1..N) per channel, the rest N(0,1), h0
+    nonzero; dt, Bm, Cm and xin in `dtype`, A and h0 float32."""
+    dt = torch.rand((B, S, I), generator=gen, device=DEVICE) * 0.5
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=DEVICE).expand(
+        I, N).contiguous()
+    Bm, Cm = (_randn(torch, gen, (B, S, N), torch.float32) for _ in range(2))
+    xin = _randn(torch, gen, (B, S, I), torch.float32)
+    h0 = _randn(torch, gen, (B, I, N), torch.float32)
+    return dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype), xin.to(dtype), h0
+
+
+def _mamba_kernel(torch, gen) -> dict:
+    """mamba_scan against mamba_ssm_chunked (on float32 copies) on the
+    card, dt, Bm, Cm and xin in float32 and in bf16: MAMBA_SWEEP and
+    jamba-v0.1-52b's prefill shape; the gradient at one sweep shape; times
+    and bounds at jamba's shape, bf16 (the serve path's) and float32."""
+    from repro_torch.kernels.mamba_scan import ops as mops
+    from repro_torch.kernels.mamba_scan.ref import mamba_ssm_chunked
+    hy = _hybrid()
+    shape = (BATCH, HY_PROMPT, hy.mamba.expand * hy.d_model,
+             hy.mamba.d_state)
+
+    def plain(dt, A, Bm, Cm, xin, h0):
+        return mamba_ssm_chunked(dt.float(), A, Bm.float(), Cm.float(),
+                                 xin.float(), h0)
+
+    def held(case, inputs):
+        n = mops.mamba_scan.launches
+        y, h = mops.mamba_scan(*inputs)
+        torch.cuda.synchronize()
+        one = mops.mamba_scan.launches == n + 1
+        ry, rh = plain(*inputs)
+        err = max((a - b).abs().max().item() for a, b in ((y, ry), (h, rh)))
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+        return {"shape": list(case), "dtype": str(inputs[0].dtype),
+                "max_abs_err": err, "over_rel": err, "tol": SSM_TOL,
+                "launched": one, "ok": one and finite and err <= SSM_TOL}
+
+    cases, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [held(c, _ssm_inputs(torch, gen, *c, dtype))
+                  for c in MAMBA_SWEEP]
+        inputs = _ssm_inputs(torch, gen, *shape, dtype)
+        cases.append(held(shape, inputs))
+        # dt and xin read once and y written once; A, Bm, Cm and h0 read
+        # and h_final written; 7 FLOP a state a token (dt A, its exp,
+        # (dt x) B, the update's multiply-add, C h's multiply-add)
+        dt, A, Bm, Cm, _, h0 = inputs
+        nbytes = (2 * dt.nbytes + dt.numel() * 4 + A.nbytes + Bm.nbytes
+                  + Cm.nbytes + 2 * h0.nbytes)
+        bound_ms, bound_by = _bound(7.0 * math.prod(shape), nbytes,
+                                    "float32")
+        timed[str(dtype)] = {
+            "ms": _time_ms(lambda i: mops.mamba_scan(*inputs), reps=10),
+            "device_ms": _device_ms(torch, lambda i: mops.mamba_scan(
+                *inputs), reps=10),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    # the plain form at jamba's shape (on the last inputs' float32 copies)
+    plain_ms = _time_ms(lambda i: plain(*inputs), reps=2, warmup=1)
+
+    # the gradient through the kernel's autograd.Function (autograd of the
+    # plain form, recomputed) against plain autograd
+    small = [x.requires_grad_() for x in _ssm_inputs(
+        torch, gen, *MAMBA_SWEEP[2], torch.float32)]
+    g_y = _randn(torch, gen, small[4].shape, torch.float32)
+    got = torch.autograd.grad(mops.mamba_scan(*small)[0], small, g_y)
+    want = torch.autograd.grad(plain(*small)[0], small, g_y)
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(got, want))
+    return {"cases": cases, "plain_ms": plain_ms, "shape": list(shape),
+            "grad_err": grad_err, **timed}
+
+
 def _config(arch, **replace):
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(arch), **replace)
@@ -881,7 +995,8 @@ def phase_serve(torch, seed: int, card: str) -> dict:
         0, cfg.vocab_size, (BATCH, PROMPT), device=DEVICE,
         generator=torch.Generator(DEVICE).manual_seed(seed + 1))
     want = {"flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * (GEN - 1)}
+            "decode_attention": cfg.num_layers * (GEN - 1),
+            "mamba_scan": 0}
     tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
         torch, cfg, params, prompts, None, want)
 
@@ -1197,8 +1312,12 @@ def phase_serve_hybrid(torch, seed: int, card: str) -> tuple:
     prompts = torch.randint(
         0, cfg.vocab_size, (BATCH, HY_PROMPT), device=DEVICE,
         generator=torch.Generator(DEVICE).manual_seed(seed + 1))
+    # a scan launch a Mamba layer, in the prefill and in each decode step
+    n_mamba = (sum(sp["kind"] == "mamba" for sp in specs)
+               * (cfg.num_layers // len(specs)))
     want = {"flash_attention": n_attn,
-            "decode_attention": n_attn * (GEN - 1)}
+            "decode_attention": n_attn * (GEN - 1),
+            "mamba_scan": n_mamba * GEN}
     with _recorded_routes() as kernel_routes:
         tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
             torch, cfg, params, prompts, None, want)
@@ -1251,10 +1370,10 @@ def phase_serve_hybrid(torch, seed: int, card: str) -> tuple:
     del plain
 
     split = _prefill_split(torch, cfg, params, prompts, (
-        "moe_ffn", "_expert_ffn", "mamba", "_mamba_ssm_chunked",
+        "moe_ffn", "_expert_ffn", "mamba", "_ssm_scan",
         "self_attention", "swiglu"))
     moe, ex = split["moe_ffn"], split["_expert_ffn"]
-    mam, scan = split["mamba"], split["_mamba_ssm_chunked"]
+    mam, scan = split["mamba"], split["_ssm_scan"]
     att = split["self_attention"]
     rest = split["prefill"] - moe - mam - att - split["swiglu"]
     print(f"  prefill split (CUDA events, one prefill, {split['prefill']:.1f}"
@@ -1302,11 +1421,13 @@ def _serve_counted(torch, cfg, params, prompts, extra, want, targets=()):
     their own cost to a host-bound step)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import ops as mops
     from repro_torch.launch import serve as S
     B, P = prompts.shape
     torch.cuda.reset_peak_memory_stats()
     fops.flash_attention.launches = 0
     dops.decode_attention.launches = 0
+    mops.mamba_scan.launches = 0
     with _timed(torch, targets) as spans, _steps_timed(torch, S) as steps:
         tokens, stats, logits = S.serve(
             cfg, batch=B, prompt_len=P, gen=GEN, use_kernels=True,
@@ -1321,7 +1442,8 @@ def _serve_counted(torch, cfg, params, prompts, extra, want, targets=()):
                  decode_steady_step_s=steady,
                  decode_steady_tokens_per_s=B / steady)
     launches = {"flash_attention": fops.flash_attention.launches,
-                "decode_attention": dops.decode_attention.launches}
+                "decode_attention": dops.decode_attention.launches,
+                "mamba_scan": mops.mamba_scan.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  launches {launches} (expected {want})")
     if launches != want:
@@ -1430,7 +1552,8 @@ def _serve_whisper(torch, seed: int, card: str) -> tuple:
         torch.bfloat16)
     extra = {"audio_frames": frames}
     want = {"flash_attention": cfg.encoder_layers + cfg.num_layers,
-            "decode_attention": cfg.num_layers * (GEN - 1)}
+            "decode_attention": cfg.num_layers * (GEN - 1),
+            "mamba_scan": 0}
     tokens, stats, logits, launches, peak_gb, timed = _serve_counted(
         torch, cfg, params, prompts, extra, want,
         targets=[(M, "_run_encoder")])
@@ -1531,7 +1654,8 @@ def _serve_vlm(torch, seed: int, card: str) -> tuple:
         generator=torch.Generator(DEVICE).manual_seed(seed + 3)).to(
         torch.bfloat16)
     extra = {"image_embeds": embeds}
-    want = {"flash_attention": n_attn, "decode_attention": n_attn * (GEN - 1)}
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * (GEN - 1),
+            "mamba_scan": 0}
     tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
         torch, cfg, params, prompts, extra, want)
     print(f"  serve {VLM} ({cfg.num_layers} of 100 layers, bf16, "
@@ -2600,6 +2724,7 @@ def main() -> int:
                          for m, path in xa_paths.items()}}
                for name in ("flash_attention", "decode_attention")}
     by_path["wkv6"] = {}
+    by_path["mamba_scan"] = {hy_path: hy_launches["mamba_scan"]}
     for path, n in train_launches.items():
         by_path["wkv6" if RWKV in path else "flash_attention"][path] = n
     by_path["flash_attention"].update(dist_launches)

@@ -13,8 +13,11 @@ Conventions
   returns updated copies instead.
 * `use_kernels=True` runs attention and the WKV6 recurrence through the
   CUDA kernels (their plain versions for CPU tensors); `False` selects the
-  reference's plain paths. The MoE dispatch and the Mamba scan are plain
-  PyTorch on both, as they are plain jnp in the reference.
+  reference's plain paths. The Mamba scan takes its kernel on CUDA
+  tensors either way (the reference has no kernel for it, so there is no
+  plain path to select) and its plain form on CPU and meta tensors. The
+  MoE dispatch is plain PyTorch on both, as it is plain jnp in the
+  reference.
 * `rules` is an optional `ShardingRules`; `rules.cs(x, logical)`
   redistributes an activation at the reference's constraint points. Under
   a mesh the tensors are DTensors. Attention, the WKV6 recurrence and the
@@ -35,6 +38,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch import obs
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.mamba_scan import ops as mops
+from repro_torch.kernels.mamba_scan.ref import (
+    mamba_ssm_chunked as _mamba_ssm_chunked)
 from repro_torch.kernels.rwkv6 import ops as wops
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked as _wkv6_chunked
 from repro_torch.sharding.rules import residual_carry
@@ -598,24 +604,9 @@ def _moe_sharded(p, x, moe_cfg, rules=None):
 
 
 # ---------------------------------------------------------------------------
-# Mamba (selective SSM): chunked scan, decode single-step
+# Mamba (selective SSM): the scan runs in `kernels/mamba_scan` (the kernel and
+# its chunked plain form), prefill and decode alike
 # ---------------------------------------------------------------------------
-
-MAMBA_CHUNK = 256
-
-
-def _scan_pairs(a, b):
-    """Inclusive scan along dim 1 of the pairs (a_t, b_t) under the
-    reference's combine (a1, b1), (a2, b2) -> (a2 a1, a2 b1 + b2): the
-    log-step (Hillis-Steele) doubling, ceil(log2 c) vectorised steps in
-    place of `lax.associative_scan`'s tree (the same function, rounded in
-    another order)."""
-    c, s = a.shape[1], 1
-    while s < c:
-        b = torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], dim=1)
-        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
-        s *= 2
-    return a, b
 
 
 def _causal_conv(xin, conv_state, w, b):
@@ -628,34 +619,16 @@ def _causal_conv(xin, conv_state, w, b):
     return F.silu(conv + b), ctx[:, ctx.shape[1] - (dc - 1):]
 
 
-def _mamba_ssm_chunked(dt, A, Bm, Cm, xin, h0):
-    """h_t = exp(dt_t*A) h_{t-1} + dt_t*B_t*x_t ; y_t = C_t . h_t.
-
-    dt,xin: (B,S,I)  Bm,Cm: (B,S,Nst)  A: (I,Nst)  h0: (B,I,Nst)
-    Returns y (B,S,I), h_final. Chunks of c = S // max(1, S // 256) tokens
-    (S must be a multiple of their count, as the reference's reshape
-    needs); dA and dBx, (B,c,I,Nst) each, are formed a chunk at a time
-    where the reference forms them for all of S at once.
-    """
-    Bsz, S, I = xin.shape
-    nchunk = max(1, S // MAMBA_CHUNK)
-    c = S // nchunk
-    if nchunk * c != S:
-        raise ValueError(f"sequence length {S} is not a multiple of its "
-                         f"{nchunk} chunks")
-    h, ys = h0, []
-    for i in range(nchunk):
-        sl = slice(i * c, (i + 1) * c)
-        dA = torch.exp(dt[:, sl, :, None] * A)                 # (B,c,I,N)
-        dBx = (dt[:, sl] * xin[:, sl])[..., None] * Bm[:, sl, None, :]
-        aa, bb = _scan_pairs(dA, dBx)
-        del dA, dBx
-        h_all = aa * h[:, None] + bb                           # (B,c,I,N)
-        del aa, bb
-        ys.append(torch.einsum("bcin,bcn->bci", h_all, Cm[:, sl]))
-        h = h_all[:, -1].clone()
-        del h_all
-    return torch.cat(ys, dim=1), h
+def _ssm_scan(dt, A, Bm, Cm, xin, h0):
+    """One shard's selective scan in float32, from dt, Bm, Cm and xin in
+    the model's dtype: the kernel's wrapper `mamba_scan` on contiguous
+    operands (the plain form for CPU tensors), or the plain form itself on
+    meta tensors, which hold no data for a kernel (the dry-run's trace)."""
+    if xin.device.type == "meta":
+        return _mamba_ssm_chunked(dt.float(), A, Bm.float(), Cm.float(),
+                                  xin.float(), h0)
+    return mops.mamba_scan(*(t.contiguous()
+                             for t in (dt, A, Bm, Cm, xin, h0)))
 
 
 @obs.spanned("model.mamba")
@@ -708,8 +681,7 @@ def mamba(p, x, cfg, rules=None, *, state=None):
     # per row and inner channel: Bm and Cm are whole on every "model" rank
     with obs.span("model.mamba.scan", timed=True):
         y, h_last = _per_shard(
-            _mamba_ssm_chunked, (dt.float(), A, Bm.float(), Cm.float(),
-                                 xin_c.float(), h0),
+            _ssm_scan, (dt, A, Bm, Cm, xin_c, h0),
             (_BSI, (None, 0), (0, None), (0, None), _BSI, (0, 1)),
             out_dims=(_BSI, (0, 1)))
     y = y.to(x.dtype) + xin_c * p["Dskip"]

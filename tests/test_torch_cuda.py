@@ -22,6 +22,9 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
+from repro_torch.kernels.mamba_scan import ops as mops  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
+    mamba_ssm_chunked)
 from repro_torch.kernels.rwkv6 import ops as wops  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 
@@ -262,6 +265,113 @@ def test_wkv6_rejects_what_it_does_not_take(cuda_device):
         wops.wkv6(x.bfloat16(), x, x, x, u)
 
 
+SSM_TOL = 1e-5    # float32; the plain form's doubling rounds in its own order
+
+
+def _ssm_on_card(dev, seed, B, S, I, N, dtype=torch.float32):
+    """dt in (0, 0.5), A = -(1..N) per channel, Bm, Cm, xin and a nonzero
+    h0 normal, on the card (the inputs of tests/test_torch_mamba.py made by
+    torch); dt, Bm, Cm and xin in `dtype`, A and h0 float32."""
+    g = torch.Generator(dev).manual_seed(seed)
+    dt = torch.rand((B, S, I), generator=g, device=dev) * 0.5
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(
+        I, N).contiguous()
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev)
+              for _ in range(2))
+    xin = torch.randn((B, S, I), generator=g, device=dev)
+    h0 = torch.randn((B, I, N), generator=g, device=dev)
+    return (dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype), xin.to(dtype), h0)
+
+
+def _ssm_plain(dt, A, Bm, Cm, xin, h0):
+    """The plain form on float32 copies of dt, Bm, Cm and xin."""
+    return mamba_ssm_chunked(dt.float(), A, Bm.float(), Cm.float(),
+                             xin.float(), h0)
+
+
+# (B, S, I, N): one token, a ragged chunk of 7, 300 (not a multiple of the
+# kernel's 32-token chunks), two plain chunks of 256, and 16 of them; I not
+# a multiple of the kernel's 32 channels a block (40, 100, 72); N = 16,
+# the kernel's (I even: the kernel reads bf16 channels in pairs)
+MAMBA_SWEEP = [(2, 1, 64, 16), (2, 7, 40, 16), (1, 300, 100, 16),
+               (2, 512, 96, 16), (1, 4096, 64, 16), (3, 33, 32, 16),
+               (1, 65, 72, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,I,N", MAMBA_SWEEP)
+def test_mamba_scan_kernel_on_card(cuda_device, B, S, I, N, dtype):
+    """From a nonzero h0, dt, Bm, Cm and xin in float32 or bf16: y and
+    h_final held against the plain form on their float32 copies, on the
+    card, to 1e-5; one launch a call."""
+    inputs = _ssm_on_card(cuda_device, S + I, B, S, I, N,
+                          getattr(torch, dtype))
+    n = mops.mamba_scan.launches
+    y, h = mops.mamba_scan(*inputs)
+    torch.cuda.synchronize()
+    assert mops.mamba_scan.launches == n + 1
+    assert y.dtype == h.dtype == torch.float32
+    ry, rh = _ssm_plain(*inputs)
+    np.testing.assert_allclose(to_np(y), to_np(ry), atol=SSM_TOL, rtol=0)
+    np.testing.assert_allclose(to_np(h), to_np(rh), atol=SSM_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_at_jamba_shape_on_card(cuda_device, dtype):
+    """jamba-v0.1-52b's prefill scan, (B, S, I, N) = (4, 4096, 8192, 16),
+    in float32 and in the serve path's bf16, against the plain form to
+    1e-5."""
+    inputs = _ssm_on_card(cuda_device, 7, 4, 4096, 8192, 16,
+                          getattr(torch, dtype))
+    y, h = mops.mamba_scan(*inputs)
+    torch.cuda.synchronize()
+    ry, rh = _ssm_plain(*inputs)
+    assert (y - ry).abs().max().item() <= SSM_TOL
+    assert (h - rh).abs().max().item() <= SSM_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_grad_on_card(cuda_device, dtype):
+    """The gradient through the kernel's autograd.Function (autograd of
+    the plain form, recomputed) against plain autograd, in each input's
+    dtype: 1e-5 relative to each gradient's largest entry."""
+    inputs = _ssm_on_card(cuda_device, 3, 2, 300, 40, 16,
+                          getattr(torch, dtype))
+    g_y = torch.randn(inputs[4].shape, device=cuda_device)
+    t = [x.clone().requires_grad_() for x in inputs]
+    y, h = mops.mamba_scan(*t)
+    got = torch.autograd.grad((y * g_y).sum() + h.square().sum(), t)
+    t2 = [x.clone().requires_grad_() for x in inputs]
+    ry, rh = _ssm_plain(*t2)
+    want = torch.autograd.grad((ry * g_y).sum() + rh.square().sum(), t2)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(to_np(a.float()), to_np(b.float()),
+                                   rtol=0,
+                                   atol=SSM_TOL * b.abs().max().item())
+
+
+def test_mamba_scan_rejects_what_it_does_not_take(cuda_device):
+    dt, A, Bm, Cm, xin, h0 = _ssm_on_card(cuda_device, 0, 1, 8, 32, 16)
+    with pytest.raises(ValueError, match="d_state"):
+        mops.mamba_scan(dt, *(t[..., :12].contiguous() for t in (A, Bm, Cm)),
+                        xin, h0[..., :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        mops.mamba_scan(dt, A, Bm, Cm,
+                        xin.transpose(1, 2).contiguous().transpose(1, 2),
+                        h0)
+    with pytest.raises(TypeError, match="float32"):
+        mops.mamba_scan(dt, A.bfloat16(), Bm, Cm, xin, h0)
+    with pytest.raises(ValueError, match="even"):          # I = 31
+        odd = [t[..., :31].bfloat16().contiguous() for t in (dt, xin)]
+        mops.mamba_scan(odd[0], A[:31], Bm.bfloat16(), Cm.bfloat16(),
+                        odd[1], h0[:, :31].contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        x = torch.zeros((1, 601, 32), device=cuda_device)
+        mops.mamba_scan(x, A, Bm[:, :1].expand(1, 601, 16).contiguous(),
+                        Bm[:, :1].expand(1, 601, 16).contiguous(), x, h0)
+
+
 # ---------------------------------------------------------------------------
 # MoE, Mamba, the hybrid model and the checkpointer: the same code on the
 # card and on the CPU (float32; TF32 is off for matmuls by default)
@@ -341,9 +451,13 @@ def test_hybrid_model_on_card(cuda_device):
     """jamba smoke in float32 (heads of 32, a width the kernels are built
     for) through the kernels on the card: prefill of 10 tokens and 4
     decode steps, logits against the CPU's plain path to 1e-4, and one
-    flash plus four decode launches."""
+    flash plus four decode launches, and a scan launch a Mamba layer in
+    the prefill and in each step."""
     from repro_torch.models import model as M
     cfg = _cfg("jamba-v0.1-52b", head_dim=32)
+    specs = M.block_specs(cfg)
+    n_mamba = (sum(sp["kind"] == "mamba" for sp in specs)
+               * (cfg.num_layers // len(specs)))
     params = M.init_params(torch.Generator().manual_seed(0), cfg)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, 14)))
@@ -352,6 +466,7 @@ def test_hybrid_model_on_card(cuda_device):
         pp = _on(params, dev)
         caches = M.init_caches(cfg, 2, 14, dtype=torch.float32, device=dev)
         fl, dl = fops.flash_attention.launches, dops.decode_attention.launches
+        ml = mops.mamba_scan.launches
         lg, _, caches = M.forward(pp, cfg, toks[:, :10].to(dev),
                                   caches=caches)
         steps = [lg[:, -1]]
@@ -361,8 +476,10 @@ def test_hybrid_model_on_card(cuda_device):
             steps.append(lg[:, 0])
         out[str(dev)] = torch.stack(steps, 1)
         launched = (fops.flash_attention.launches - fl,
-                    dops.decode_attention.launches - dl)
-        assert launched == ((0, 0) if dev == "cpu" else (1, 4))
+                    dops.decode_attention.launches - dl,
+                    mops.mamba_scan.launches - ml)
+        assert launched == ((0, 0, 0) if dev == "cpu" else
+                            (1, 4, 5 * n_mamba))
     np.testing.assert_allclose(to_np(out[str(cuda_device)]),
                                to_np(out["cpu"]), atol=1e-4, rtol=0)
 
@@ -482,6 +599,7 @@ def test_xattn_model_on_card(cuda_device, arch):
         pp = _on(params, dev)
         caches = M.init_caches(cfg, 2, 14, dtype=torch.float32, device=dev)
         fl, dl = fops.flash_attention.launches, dops.decode_attention.launches
+        ml = mops.mamba_scan.launches
         lg, _, caches = M.forward(pp, cfg, toks[:, :10].to(dev),
                                   extra={key: src.to(dev)}, caches=caches,
                                   use_kernels=use_kernels)

@@ -1,10 +1,11 @@
 """The port's attention kernels against the reference's, and what the
-three kernel wrappers share.
+four kernel wrappers share.
 
 On the CPU the port's wrappers run their plain versions; both are held
 against `repro.kernels.*.ops` (the Pallas kernels in interpret mode) on the
 reference's sweeps (tests/test_kernels.py:19-25 and :60-61). The WKV6
-kernel's parity tests are in tests/test_torch_rwkv.py. The CUDA kernels
+kernel's parity tests are in tests/test_torch_rwkv.py, the Mamba scan's
+in tests/test_torch_mamba.py. The CUDA kernels
 themselves are tested on the card by tests/test_torch_cuda.py.
 """
 import re
@@ -30,6 +31,7 @@ from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as mops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wops  # noqa: E402
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -119,16 +121,20 @@ def test_cpu_path_counts_no_launches():
     q, k, v = (torch.from_numpy(x) for x in flash_inputs(3, 1, 16, 2, 1,
                                                           32))
     before = (flash_attention.launches, decode_attention.launches,
-              wops.wkv6.launches)
+              wops.wkv6.launches, mops.mamba_scan.launches)
     flash_attention(q, k, v, causal=True)
     decode_attention(q[:, :1], k, v, torch.zeros(1, 16))
     r = q.transpose(1, 2).contiguous()
     wops.wkv6(r, r, r, -r.abs(), torch.zeros(2, 32))
+    x = q.reshape(1, 16, 64)
+    mops.mamba_scan(x.abs(), -torch.ones(64, 4), x[..., :4], x[..., 4:8], x,
+                    torch.zeros(1, 64, 4))
     assert (flash_attention.launches, decode_attention.launches,
-            wops.wkv6.launches) == before
+            wops.wkv6.launches, mops.mamba_scan.launches) == before
 
 
-@pytest.mark.parametrize("kernel", ["flash", "decode", "wkv6"])
+@pytest.mark.parametrize("kernel", ["flash", "decode", "wkv6",
+                                    "mamba_scan"])
 def test_non_cpu_tensor_launches_or_raises(kernel):
     """A tensor that is not on the CPU never takes the plain version."""
     q = torch.zeros((1, 1, 2, 32), device="meta")
@@ -138,8 +144,13 @@ def test_non_cpu_tensor_launches_or_raises(kernel):
             flash_attention(q, q, q, causal=True)
         elif kernel == "decode":
             decode_attention(q, k, k, torch.zeros((1, 16), device="meta"))
-        else:
+        elif kernel == "wkv6":
             wops.wkv6(k, k, k, k, torch.zeros((16, 32), device="meta"))
+        else:
+            x = torch.zeros((1, 16, 32), device="meta")
+            a = torch.zeros((32, 16), device="meta")
+            mops.mamba_scan(x, a, x[..., :16], x[..., 16:], x,
+                            torch.zeros((1, 32, 16), device="meta"))
 
 
 def _c_params(src: Path, fn: str) -> int:
@@ -149,13 +160,16 @@ def _c_params(src: Path, fn: str) -> int:
 
 def test_c_entries_match_the_ctypes_bindings():
     srcs = _build.sources()
-    assert set(srcs) == {"flash_attention", "decode_attention", "wkv6"}
+    assert set(srcs) == {"flash_attention", "decode_attention", "wkv6",
+                         "mamba_scan"}
     # the ctypes bindings declare one argument per C parameter
     assert _c_params(srcs["flash_attention"], "flash_attention_fwd") == \
         len(fops.ARGTYPES)
     assert _c_params(srcs["decode_attention"], "decode_attention_fwd") == \
         len(dops.ARGTYPES)
     assert _c_params(srcs["wkv6"], "wkv6_fwd") == len(wops.ARGTYPES)
+    assert _c_params(srcs["mamba_scan"], "mamba_scan_fwd") == \
+        len(mops.ARGTYPES)
     for name in srcs:
         assert _build._library_path(srcs[name]).parent == _build.BUILD_DIR
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
@@ -171,3 +185,12 @@ def test_decode_wrapper_constants_match_the_kernel(const, attr):
     src = _build.sources()["decode_attention"].read_text()
     m = re.search(rf"constexpr int {const} = (\d+);", src)
     assert m and int(m.group(1)) == getattr(dops, attr)
+
+
+def test_mamba_scan_wrapper_state_matches_the_kernel():
+    """The wrapper refuses a d_state the kernel was not built for, from a
+    Python copy of the kernel's N; the two must agree."""
+    src = _build.sources()["mamba_scan"].read_text()
+    m = re.search(r"constexpr int N = (\d+);", src)
+    assert m and int(m.group(1)) == mops.D_STATE
+    assert re.search(rf"N != {mops.D_STATE}\)", src)

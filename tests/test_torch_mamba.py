@@ -1,5 +1,8 @@
 """The port's Mamba layer (`_mamba_ssm_chunked`, `mamba`) against
-`repro.models.layers`, on the same numpy inputs, float32."""
+`repro.models.layers`, on the same numpy inputs, float32; and the scan's
+kernel wrapper (`ops.mamba_scan`) on CPU tensors against the plain form.
+The kernel itself is held to the plain form on the card by
+tests/test_torch_cuda.py."""
 import dataclasses
 
 import jax
@@ -11,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_parity import cfg_pair, to_np  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as mops  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 SSM_TOL = 1e-5    # float32; the in-chunk scans round in different orders
@@ -65,6 +69,76 @@ def test_ssm_chunked_needs_whole_chunks():
     args = _ssm_inputs(5, 1, 601, 4, 2)
     with pytest.raises(ValueError, match="multiple"):
         TL._mamba_ssm_chunked(*map(torch.from_numpy, args))
+
+
+def test_mamba_scan_on_cpu_reads_bf16_as_its_float32_copies():
+    """bf16 dt, Bm, Cm and xin: ops.mamba_scan computes on their float32
+    values, exactly as the plain form on `.float()` copies, and hands the
+    gradients back in bf16."""
+    args = [torch.from_numpy(a) for a in _ssm_inputs(9, 2, 40, 8, 4)]
+    for i in (0, 2, 3, 4):
+        args[i] = args[i].bfloat16()
+    t = [a.clone().requires_grad_() for a in args]
+    y, h = mops.mamba_scan(*t)
+    wy, wh = TL._mamba_ssm_chunked(*(a.float() for a in args))
+    assert y.dtype == h.dtype == torch.float32
+    torch.testing.assert_close(y, wy, atol=0, rtol=0)
+    torch.testing.assert_close(h, wh, atol=0, rtol=0)
+    grads = torch.autograd.grad(y.sum() + h.sum(), t)
+    assert [g.dtype for g in grads] == [a.dtype for a in args]
+
+
+@pytest.mark.parametrize("S", [512, 300, 1, 7])
+def test_mamba_scan_on_cpu_is_the_plain_form(S):
+    """ops.mamba_scan on CPU tensors runs the plain form, launches
+    nothing, and its gradient (autograd of the plain form recomputed from
+    the saved inputs, h0 included) is plain autograd's: y, h_final and
+    every input's gradient, exactly."""
+    args = [torch.from_numpy(a) for a in _ssm_inputs(S + 11, 2, S, 8, 4)]
+    g_y, g_h = (torch.from_numpy(np.random.default_rng(S).standard_normal(
+        shape).astype(np.float32)) for shape in ((2, S, 8), (2, 8, 4)))
+    n = mops.mamba_scan.launches
+    got_in = [a.clone().requires_grad_() for a in args]
+    y, h = mops.mamba_scan(*got_in)
+    got = torch.autograd.grad((y, h), got_in, (g_y, g_h))
+    want_in = [a.clone().requires_grad_() for a in args]
+    wy, wh = TL._mamba_ssm_chunked(*want_in)
+    want = torch.autograd.grad((wy, wh), want_in, (g_y, g_h))
+    assert mops.mamba_scan.launches == n
+    torch.testing.assert_close(y, wy, atol=0, rtol=0)
+    torch.testing.assert_close(h, wh, atol=0, rtol=0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_mamba_scan_needs_whole_chunks():
+    """The wrapper keeps the plain form's contract on every path: S = 601
+    is not a whole number of chunks."""
+    args = _ssm_inputs(5, 1, 601, 4, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        mops.mamba_scan(*map(torch.from_numpy, args))
+
+
+def test_mamba_block_scans_through_the_wrapper(monkeypatch):
+    """`mamba` hands its scan to ops.mamba_scan, once a call, with
+    contiguous operands in the model's dtype (Bm and Cm are slices of one
+    projection); on meta tensors (the dry-run) it traces the plain form
+    instead."""
+    _, tc, p, rng = _mamba_case(4)
+    calls, real = [], mops.mamba_scan
+
+    def counted(*args):
+        calls.append([(a.dtype, a.is_contiguous()) for a in args])
+        return real(*args)
+    monkeypatch.setattr(mops, "mamba_scan", counted)
+    x = torch.from_numpy(rng.standard_normal((2, 5, tc.d_model)).astype(
+        np.float32))
+    TL.mamba(jax.tree.map(torch.from_numpy, p), x, tc)
+    assert calls == [[(torch.float32, True)] * 6]
+    meta = jax.tree.map(lambda a: torch.empty(a.shape, device="meta"), p)
+    out, st = TL.mamba(meta, x.to("meta"), tc)
+    assert len(calls) == 1 and out.shape == x.shape
+    assert st["ssm"].shape == (2, 2 * tc.d_model, tc.mamba.d_state)
 
 
 def _mamba_case(seed):
