@@ -1,0 +1,13 @@
+"""Model (`models/layers.py`): the seconds inside the program's
+`model.mamba2` spans (the Mamba-2 mixer: projections, conv, scan, gated
+norm), over the window."""
+from pathlib import Path
+
+from portbench import bench
+
+_program = bench.load_file(Path(__file__).with_name("_program.py"),
+                           "portbench_metric__program")
+
+
+def read(run):
+    return _program.share(run, "model.mamba2")

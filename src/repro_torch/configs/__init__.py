@@ -1,4 +1,6 @@
-"""Architecture configs (copied from `repro.configs`, same names).
+"""Architecture configs (copied from `repro.configs`, same names), and the
+port's own: nemotron-3-nano-30b-a3b, which the JAX package lacks and
+`ALL_ARCHS` therefore leaves out.
 
 Importing this package registers all archs."""
 from repro_torch.configs.base import (  # noqa: F401
@@ -9,7 +11,7 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_32b, llama3_405b, deepseek_coder_33b, h2o_danube_1_8b,
     llama4_scout_17b_a16e, kimi_k2_1t_a32b, llama_3_2_vision_90b,
     jamba_v0_1_52b, rwkv6_7b, whisper_large_v3, glam,
-    lovelock_ref,
+    lovelock_ref, nemotron_3_nano_30b_a3b,
 )
 
 ALL_ARCHS = [

@@ -54,6 +54,19 @@ class MoEConfig:
     # 'scatter': scatter/gather dispatch (O(N*K*D) data movement) — the
     # compute-term optimization for very large E (see EXPERIMENTS §Perf)
     dispatch: str = "einsum"
+    # 'softmax': top-k of the softmax, renormalised; 'sigmoid_bias'
+    # (Nemotron-H): top-k of sigmoid scores plus a correction bias (the
+    # `router_bias` leaf, used only to choose), the chosen scores
+    # renormalised
+    router: str = "softmax"
+    # the experts' FFN: 'swiglu' (gate, up, down) or 'relu2' (up, down:
+    # down(relu(up x)^2), no gate)
+    activation: str = "swiglu"
+    routed_scaling: float = 1.0   # sigmoid_bias: the routed gates' factor
+    shared_d_ff: int = 0          # shared experts' width; 0 => n * d_ff
+
+    def shared_width(self) -> int:
+        return self.shared_d_ff or self.num_shared_experts * self.d_ff
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +74,19 @@ class MambaConfig:
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
+    # Mamba-2 (multi-head SSD), run by the 'M' blocks of a layer_pattern,
+    # which alone selects it (n_heads > 0 asks for a pattern): n_heads
+    # heads of head_dim channels (the inner width; `expand` is not read),
+    # B and C of d_state shared by each of n_groups groups of heads, the
+    # prefill's scan in chunks of `chunk` tokens
+    n_heads: int = 0
+    head_dim: int = 0
+    n_groups: int = 1
+    chunk: int = 128
+
+    def conv_width(self) -> int:
+        """Mamba-2's conv channels: x, B and C."""
+        return self.n_heads * self.head_dim + 2 * self.n_groups * self.d_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +120,11 @@ class ModelConfig:
 
     # ssm (RWKV6)
     rwkv: bool = False
+
+    # Nemotron-H: one character a block, each block one mixer: 'M'
+    # Mamba-2, 'E' MoE, '*' attention; "" => the periodic families above
+    layer_pattern: str = ""
+    use_rope: bool = True         # False: attention without positions
 
     # vlm: cross-attention to image tokens every k layers
     cross_attn_every: int = 0
@@ -145,6 +176,8 @@ class ModelConfig:
     # ---- parameter counting (true, un-padded arch) ----
     def param_count(self) -> Tuple[int, int]:
         """(total_params, active_params) of the true architecture."""
+        if self.layer_pattern:
+            return self._pattern_param_count()
         D, V, L = self.d_model, self.vocab_size, self.num_layers
         hd = self.head_dim_()
         per_layer = 0
@@ -200,6 +233,35 @@ class ModelConfig:
         active = emb + attn_active + ffn_active + enc
         return int(total), int(active)
 
+    def _pattern_param_count(self) -> Tuple[int, int]:
+        """Every leaf of a layer-pattern model, norms and biases too: the
+        embedding, the head, the final norm and each block's norm and
+        mixer."""
+        D, hd = self.d_model, self.head_dim_()
+        m, e = self.mamba, self.moe
+        blocks = {"*": D * hd * 2 * (self.num_heads + self.num_kv_heads)}
+        if m is not None:
+            I, conv = m.n_heads * m.head_dim, m.conv_width()
+            # in_proj (z, xBC, dt), conv weight and bias, dt_bias, A_log,
+            # D, the gated norm, out_proj
+            blocks["M"] = (D * (I + conv + m.n_heads) + conv * (m.d_conv + 1)
+                           + 3 * m.n_heads + I + I * D)
+        if e is not None:
+            mats = 2 if e.activation == "relu2" else 3    # weight matrices
+            expert = mats * D * e.d_ff
+            fixed = (D * e.num_experts + mats * D * e.shared_width()
+                     + (e.num_experts if e.router == "sigmoid_bias" else 0))
+            blocks["E"] = fixed + e.num_experts * expert
+        total = active = (self.vocab_size * D * (1 if self.tie_embeddings
+                                                 else 2) + D)
+        reps = self.num_layers // len(self.layer_pattern)
+        for c in self.layer_pattern:
+            total += reps * (D + blocks[c])
+            active += reps * (D + blocks[c])
+            if c == "E":
+                active -= reps * (e.num_experts - e.top_k) * expert
+        return int(total), int(active)
+
 
 # Registry --------------------------------------------------------------------
 
@@ -245,6 +307,13 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         kw["num_image_tokens"] = 16
     if cfg.sliding_window:
         kw["sliding_window"] = 32
+    if cfg.layer_pattern:
+        kw["layer_pattern"] = "MEM*EME*"
+        kw["num_layers"] = len(kw["layer_pattern"])
+        kw["mamba"] = dataclasses.replace(cfg.mamba, n_heads=4, head_dim=16,
+                                          n_groups=2, d_state=16, chunk=16)
+        kw["moe"] = dataclasses.replace(kw["moe"], num_experts=8,
+                                        shared_d_ff=2 * kw["moe"].d_ff)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)
 
 

@@ -1,5 +1,6 @@
 """Decoder layers: the dense subset of `repro.models.layers`, cross-attention,
-the MoE FFN, Mamba and RWKV6.
+the MoE FFN, Mamba and RWKV6; and the port's own Mamba-2 mixer, sigmoid
+router and relu² experts (Nemotron-H), which the reference lacks.
 
 Conventions
 -----------
@@ -376,13 +377,34 @@ def swiglu(p, x, rules=None):
     return _einsum("bsf,fd->bsd", h, p["w_down"])
 
 
+def _relu2_hidden(spec, x, w_up):
+    """relu(x w_up)^2, the hidden of a relu² FFN, by einsum `spec`."""
+    return torch.square(F.relu(_einsum(spec, x, w_up)))
+
+
+def relu2(p, x, rules=None):
+    """Nemotron-H's FFN without a gate: w_down(relu(x w_up)^2).
+    p: {w_up (D,F), w_down (F,D)}."""
+    h = _relu2_hidden("bsd,df->bsf", x, p["w_up"])
+    if rules is not None:
+        h = rules.cs(h, "act_bsf")
+    return _einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+FFNS = {"swiglu": swiglu, "relu2": relu2}
+
+
 def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
     """Shared routing: returns (gate_vals, expert_ids, pos, C, probs).
 
     Router logits in float32 (a bf16 `xt` times the float32 router
-    promotes); top-k of the softmax, renormalised; each (token, k)'s
-    position within its expert counted in (k-major, token) order; gates of
-    positions past the capacity C are 0.
+    promotes); top-k of the softmax, renormalised. With `router=
+    "sigmoid_bias"`, `probs` are sigmoid scores, the top-k of the scores
+    plus p["router_bias"] are chosen, and the gates are the chosen scores
+    over their sum (plus 1e-20), times `routed_scaling`. Each (token,
+    k)'s position within its expert is
+    counted in (k-major, token) order; gates of positions past the
+    capacity C are 0.
 
     On one rank's rows of a larger batch, C comes from the batch's
     `n_tokens`, and `offsets(counts)` maps this rank's (K, E) choice
@@ -393,10 +415,17 @@ def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     N = xt.shape[0]
     logits = _einsum("nd,de->ne", xt, p["router"]).float()
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)          # (N,K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    if moe_cfg.router == "sigmoid_bias":
+        probs = torch.sigmoid(logits)
+        expert_ids = torch.topk(probs + p["router_bias"], K, dim=-1)[1]
+        gate_vals = probs.gather(-1, expert_ids)
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True)
+                                 + 1e-20) * moe_cfg.routed_scaling
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_ids = torch.topk(probs, K, dim=-1)      # (N,K)
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
     C = max(1, int(moe_cfg.capacity_factor * K * (n_tokens or N) / E))
     onehot = F.one_hot(expert_ids, E)                             # (N,K,E)
     flat = onehot.transpose(0, 1).reshape(K * N, E)
@@ -412,6 +441,7 @@ def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
         # a route over the whole batch (a rank's rows count nothing),
         # counted when the records are drained: nothing is launched here
         g = gate_vals.detach()
+        obs.count("moe.choices", N * K)
         obs.count("moe.kept", lambda: (g > 0).sum())
         obs.count("moe.slots", E * C)
         obs.count("moe.experts_hit",
@@ -427,10 +457,13 @@ def _moe_aux(expert_ids, probs, moe_cfg):
     return E * torch.sum(f * pm) * moe_cfg.aux_loss_weight
 
 
-def _expert_ffn(p, xe, rules=None):
-    g = _einsum("ecd,edf->ecf", xe, p["w_gate"])
-    u = _einsum("ecd,edf->ecf", xe, p["w_up"])
-    h = F.silu(g) * u
+def _expert_ffn(p, xe, rules=None, activation="swiglu"):
+    if activation == "relu2":
+        h = _relu2_hidden("ecd,edf->ecf", xe, p["w_up"])
+    else:
+        g = _einsum("ecd,edf->ecf", xe, p["w_gate"])
+        u = _einsum("ecd,edf->ecf", xe, p["w_up"])
+        h = F.silu(g) * u
     if rules is not None:
         h = rules.cs(h, "moe_ecf")
     ye = _einsum("ecf,efd->ecd", h, p["w_down"])
@@ -443,8 +476,10 @@ def _expert_ffn(p, xe, rules=None):
 def moe_ffn(p, x, moe_cfg, rules=None):
     """Token-choice top-k MoE.
 
-    p: {router (D,E) float32, w_gate/w_up (E,D,F), w_down (E,F,D),
-        [shared: swiglu params]}
+    p: {router (D,E) float32, [router_bias (E,) float32], [w_gate],
+        w_up (E,D,F), w_down (E,F,D), [shared: the FFN params of width
+        moe_cfg.shared_width()]}; the experts and the shared FFN are
+    moe_cfg.activation's (`FFNS`).
     Returns (out, aux_loss). Dispatch per moe_cfg.dispatch:
       'einsum'  -- GShard one-hot einsums: 2*N*E*C*D dispatch FLOP;
       'scatter' -- index_add_ into the expert slots, a gather back.
@@ -460,13 +495,15 @@ def moe_ffn(p, x, moe_cfg, rules=None):
             gate_vals, expert_ids, pos, C, probs = _moe_route(p, xt, moe_cfg)
         out = _moe_experts(xt, gate_vals, expert_ids, pos, C,
                            range(moe_cfg.num_experts), moe_cfg.dispatch,
-                           lambda xe: _expert_ffn(p, xe, rules))
+                           lambda xe: _expert_ffn(p, xe, rules,
+                                                  moe_cfg.activation))
         out = out.reshape(B, S, D)
 
         def aux():
             return _moe_aux(expert_ids, probs, moe_cfg)
     if "shared" in p:
-        out = out + swiglu(p["shared"], x, rules)
+        with obs.span("model.moe.shared", timed=True):
+            out = out + FFNS[moe_cfg.activation](p["shared"], x, rules)
     # the loss last, as the reference orders it: a remat recompute runs
     # as far as the last tensor the backward saved
     return out, aux()
@@ -544,6 +581,9 @@ def _moe_sharded(p, x, moe_cfg, rules=None):
     over "model" before the router's backward, which then runs whole on
     every "model" rank, as its forward. Returns (out, a function that
     gives the load-balance loss), as DTensors."""
+    if moe_cfg.router != "softmax":
+        raise NotImplementedError(f"the {moe_cfg.router!r} router has no "
+                                  f"sharded path")
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     E, K = moe_cfg.num_experts, moe_cfg.top_k
@@ -583,7 +623,8 @@ def _moe_sharded(p, x, moe_cfg, rules=None):
     def ffn(xe):
         xe = DTensor.from_local(xe, mesh, pl(rpart, msplit), shape=(E, C, D),
                                 stride=(C * D, D, 1))
-        ye = _expert_ffn(p, xe.redistribute(mesh, pl(R, msplit)), rules)
+        ye = _expert_ffn(p, xe.redistribute(mesh, pl(R, msplit)), rules,
+                         moe_cfg.activation)
         return ye.redistribute(mesh, pl(R, msplit)).to_local(
             grad_placements=pl(rpart, msplit))
     out = _moe_experts(x.to_local(grad_placements=pl(rsplit, mpart))
@@ -688,6 +729,132 @@ def mamba(p, x, cfg, rules=None, *, state=None):
     y = y * F.silu(z)
     out = _einsum("bsi,id->bsd", y, p["out_proj"])
     return out, {"conv": new_conv, "ssm": h_last}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (Nemotron-H's mixer): multi-head SSD, one decay a head, B and C
+# shared by groups of heads; the chunked scan in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _segsum(a):
+    """(..., T) -> (..., T, T): [i, j] the sum of a over (j, i] where
+    j <= i (0 on the diagonal), -inf above it. Each entry sums its own
+    segment: a difference of running sums would round away the short
+    segments of a long decay in float32."""
+    T = a.shape[-1]
+    x = a[..., :, None].expand(*a.shape, T)               # [d, e] = a[d]
+    i = torch.arange(T, device=a.device)
+    s = torch.cumsum(x.masked_fill(i[:, None] <= i[None, :], 0.0), dim=-2)
+    return s.masked_fill(i[:, None] < i[None, :], -math.inf)
+
+
+def mamba2_chunked(x, dt, A, Bm, Cm, h0, chunk):
+    """Mamba-2's scan in the chunked form of the SSD paper (Dao and Gu,
+    2024, `ssd_minimal`), from the state h0, in float32:
+
+        h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T,    y_t = h_t C_t
+
+    for each head, one decay a head and token. x (B,S,H,P), dt (B,S,H),
+    A (H,), Bm and Cm (B,S,G,N), head h reading group h // (H / G); h0
+    (B,H,P,N). Within a chunk the outputs are masked products of C, B and
+    x; each chunk's state at its end passes to the next in one product
+    over the chunks. A ragged last chunk is padded with tokens that
+    neither decay nor add. Returns (y (B,S,H,P), the state after the last
+    token)."""
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    R, nc = H // G, -(-S // chunk)
+    a = dt * A                                            # log decays
+    xd = x * dt[..., None]
+    pad = nc * chunk - S
+    if pad:
+        a, xd, Bm, Cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                         for t in (a, xd, Bm, Cm))
+    a = a.reshape(b, nc, chunk, G, R).permute(0, 1, 3, 4, 2)  # (b,c,g,r,l)
+    xd = xd.reshape(b, nc, chunk, G, R, P)
+    Bc, Cc = (t.reshape(b, nc, chunk, G, N) for t in (Bm, Cm))
+    acs = torch.cumsum(a, dim=-1)
+    # within each chunk
+    L = torch.exp(_segsum(a))                             # (b,c,g,r,l,s)
+    CB = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)
+    y = torch.einsum("bcgrls,bcsgrp->bclgrp", CB[:, :, :, None] * L, xd)
+    # each chunk's inputs decayed to its end, then the state at each
+    # chunk's start (and after the last) from h0 and those
+    to_end = L[..., -1, :].permute(0, 1, 4, 2, 3)[..., None]
+    states = torch.einsum("bcsgn,bcsgrp->bcgrpn", Bc, xd * to_end)
+    states = torch.cat([h0.reshape(b, 1, G, R, P, N), states], dim=1)
+    across = torch.exp(_segsum(F.pad(acs[..., -1].permute(0, 2, 3, 1),
+                                     (1, 0))))       # (b,g,r,c+1,c+1)
+    states = torch.einsum("bgrzc,bcgrpn->bzgrpn", across, states)
+    y = y + (torch.einsum("bclgn,bcgrpn->bclgrp", Cc, states[:, :-1])
+             * torch.exp(acs).permute(0, 1, 4, 2, 3)[..., None])
+    return (y.reshape(b, nc * chunk, H, P)[:, :S],
+            states[:, -1].reshape(b, H, P, N))
+
+
+def _mamba2_step(x, dt, A, Bm, Cm, h):
+    """One token of `mamba2_chunked`'s recurrence: x (B,H,P), dt (B,H),
+    Bm and Cm (B,G,N), h (B,H,P,N). Returns (y (B,H,P), the new h)."""
+    b, H, P = x.shape
+    G, N = Bm.shape[1:]
+    decay = torch.exp(dt * A).reshape(b, G, H // G, 1, 1)
+    add = (x * dt[..., None]).reshape(b, G, H // G, P, 1) * \
+        Bm[:, :, None, None, :]
+    h = h.reshape(b, G, H // G, P, N) * decay + add
+    y = torch.einsum("bgrpn,bgn->bgrp", h, Cm)
+    return y.reshape(b, H, P), h.reshape(b, H, P, N)
+
+
+@obs.spanned("model.mamba2", timed=True)
+def mamba2(p, x, cfg, rules=None, *, state=None):
+    """Mamba-2 mixer, as Nemotron-H's (transformers' NemotronHMamba2Mixer)
+    computes it.
+
+    p: {in_proj (D, I + C + H), z, xBC and dt; conv_w (dc, C), conv_b
+        (C,), the depthwise causal conv over xBC, C = I + 2 G N; dt_bias,
+        A_log, D (H,) float32; norm (I,) float32; out_proj (I, D)},
+        I = H P.
+    state: {conv: (B, dc-1, C), ssm: (B, H, P, N) float32} for prefill
+    into a cache and decode. Returns (out, new_state). The conv and its
+    SiLU run in the model's dtype; x, B and C are split from its output;
+    dt = softplus(dt + dt_bias) and A = -exp(A_log), one a head. The scan
+    (`mamba2_chunked`; one step of the recurrence for a single token),
+    the skip y + D x, the gate y silu(z) and the RMSNorm over groups of
+    I / G channels (scaled by 1 + norm, as the port's norms are) run in
+    float32, then out_proj. No sharded path."""
+    if isinstance(x, DTensor) or rules is not None:
+        raise NotImplementedError("Mamba-2 has no sharded path")
+    m = cfg.mamba
+    B, S, _ = x.shape
+    H, P, G, N = m.n_heads, m.head_dim, m.n_groups, m.d_state
+    I, C = H * P, m.conv_width()
+    z, xbc, dt = torch.split(_einsum("bsd,de->bse", x, p["in_proj"]),
+                             [I, C, H], dim=-1)
+    conv = state["conv"] if state is not None else torch.zeros(
+        (B, m.d_conv - 1, C), dtype=xbc.dtype, device=x.device)
+    xbc, new_conv = _causal_conv(xbc, conv, p["conv_w"], p["conv_b"])
+    xs, Bm, Cm = torch.split(xbc.float(), [I, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, S, H, P)
+    Bm, Cm = Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    h0 = state["ssm"] if state is not None else torch.zeros(
+        (B, H, P, N), dtype=torch.float32, device=x.device)
+    with obs.span("model.mamba2.scan", timed=True, tokens=B * S,
+                  chunks=0 if S == 1 else -(-S // m.chunk)):
+        if S == 1:
+            y, h = _mamba2_step(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0],
+                                h0)
+            y = y[:, None]
+        else:
+            y, h = mamba2_chunked(xs, dt, A, Bm, Cm, h0, m.chunk)
+    y = (y + xs * p["D"][:, None]).reshape(B, S, I) * F.silu(z.float())
+    y = rms_norm(y.reshape(B, S, G, I // G), p["norm"].reshape(G, I // G),
+                 cfg.norm_eps)
+    out = _einsum("bsi,id->bsd", y.reshape(B, S, I).to(x.dtype),
+                  p["out_proj"])
+    return out, {"conv": new_conv, "ssm": h}
 
 
 # ---------------------------------------------------------------------------

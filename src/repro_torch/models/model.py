@@ -3,7 +3,9 @@
 Port of `repro.models.model`: dense decoders, MoE, the Mamba + attention
 hybrid (Jamba), RWKV6, the VLM (gated cross-attention every
 `cross_attn_every` layers) and whisper (an encoder over audio frames, and
-a decoder with a cross-attention sublayer in every block). Parameters keep
+a decoder with a cross-attention sublayer in every block); and, the port's
+own, Nemotron-H's blocks of one mixer each (Mamba-2, MoE or attention),
+in the order of `cfg.layer_pattern`, which is then the period. Parameters keep
 the reference's tree: per-position-in-period layer dicts whose leaves
 carry a leading period axis. The reference's `lax.scan` over periods is a
 Python loop over that axis here. Caches (KV rings, Mamba conv and SSM
@@ -31,6 +33,8 @@ from repro_torch.tree import tree_map
 
 
 def period_of(cfg: ModelConfig) -> int:
+    if cfg.layer_pattern:
+        return len(cfg.layer_pattern)
     if cfg.rwkv:
         return 1
     if cfg.attn_every > 1:
@@ -45,7 +49,15 @@ def period_of(cfg: ModelConfig) -> int:
 def block_specs(cfg: ModelConfig) -> list[dict]:
     """One spec per position within a period: the mixer (attn, xattn,
     mamba, rwkv) and the FFN (dense, moe, rwkv); whisper's decoder blocks
-    carry `cross` (a cross-attention sublayer after the self-attention)."""
+    carry `cross` (a cross-attention sublayer after the self-attention).
+    A layer pattern's blocks hold one mixer (mamba2, moe or attn) and no
+    FFN (`ffn` None)."""
+    if cfg.mamba is not None and cfg.mamba.n_heads and not cfg.layer_pattern:
+        raise ValueError("Mamba-2 (mamba.n_heads > 0) runs only in the 'M' "
+                         "blocks of a layer_pattern")
+    if cfg.layer_pattern:
+        kinds = {"M": "mamba2", "E": "moe", "*": "attn"}
+        return [{"kind": kinds[c], "ffn": None} for c in cfg.layer_pattern]
     P = period_of(cfg)
     specs = []
     for pos in range(P):
@@ -132,11 +144,13 @@ def _attn_params(gen, cfg: ModelConfig, tp: int, *, cross=False):
     return p
 
 
-def _ffn_params(gen, cfg: ModelConfig, d_ff=None):
+def _ffn_params(gen, cfg: ModelConfig, d_ff=None, activation="swiglu"):
+    """SwiGLU's w_gate, w_up, w_down; relu2's w_up, w_down."""
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
     dt = _dtype(cfg.param_dtype)
-    return {"w_gate": _dense(gen, (D, Fd), dt),
-            "w_up": _dense(gen, (D, Fd), dt),
+    p = {"w_gate": _dense(gen, (D, Fd), dt)} if activation == "swiglu" \
+        else {}
+    return {**p, "w_up": _dense(gen, (D, Fd), dt),
             "w_down": _dense(gen, (Fd, D), dt,
                              0.02 / math.sqrt(2 * cfg.num_layers))}
 
@@ -145,13 +159,17 @@ def _moe_params(gen, cfg: ModelConfig):
     m = cfg.moe
     D, Fd, E = cfg.d_model, m.d_ff, m.num_experts
     dt = _dtype(cfg.param_dtype)
-    p = {"router": _dense(gen, (D, E), torch.float32),
-         "w_gate": _dense(gen, (E, D, Fd), dt),
-         "w_up": _dense(gen, (E, D, Fd), dt),
-         "w_down": _dense(gen, (E, Fd, D), dt,
-                          0.02 / math.sqrt(2 * cfg.num_layers))}
+    p = {"router": _dense(gen, (D, E), torch.float32)}
+    if m.router == "sigmoid_bias":      # the correction bias, 0 at init
+        p["router_bias"] = _zeros(gen, (E,), torch.float32)
+    if m.activation == "swiglu":
+        p["w_gate"] = _dense(gen, (E, D, Fd), dt)
+    p.update(w_up=_dense(gen, (E, D, Fd), dt),
+             w_down=_dense(gen, (E, Fd, D), dt,
+                           0.02 / math.sqrt(2 * cfg.num_layers)))
     if m.num_shared_experts:
-        p["shared"] = _ffn_params(gen, cfg, d_ff=Fd * m.num_shared_experts)
+        p["shared"] = _ffn_params(gen, cfg, d_ff=m.shared_width(),
+                                  activation=m.activation)
     return p
 
 
@@ -173,6 +191,32 @@ def _mamba_params(gen, cfg: ModelConfig):
         "dt_bias": torch.full((I,), -2.0, dtype=dt, device=gen.device),
         "A_log": torch.log(A),
         "Dskip": torch.ones((I,), dtype=dt, device=gen.device),
+        "out_proj": _dense(gen, (I, D), dt,
+                           0.02 / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _mamba2_params(gen, cfg: ModelConfig):
+    """Nemotron-H's Mamba-2 mixer (`layers.mamba2`): A = 1..H, D = 1 and
+    the gated norm's scale 0 as published; dt_bias the inverse softplus
+    of dt spaced geometrically over [1e-3, 0.1] across the heads (the
+    published init draws dt log-uniformly there)."""
+    m = cfg.mamba
+    D, H = cfg.d_model, m.n_heads
+    I, C = H * m.head_dim, m.conv_width()
+    dt = _dtype(cfg.param_dtype)
+    f32 = torch.float32
+    step = torch.exp(torch.linspace(math.log(1e-3), math.log(0.1), H,
+                                    device=gen.device))
+    return {
+        "in_proj": _dense(gen, (D, I + C + H), dt),
+        "conv_w": _dense(gen, (m.d_conv, C), dt, 0.1),
+        "conv_b": _zeros(gen, (C,), dt),
+        "dt_bias": step + torch.log(-torch.expm1(-step)),
+        "A_log": torch.log(torch.arange(1, H + 1, dtype=f32,
+                                        device=gen.device)),
+        "D": torch.ones((H,), dtype=f32, device=gen.device),
+        "norm": _zeros(gen, (I,), f32),
         "out_proj": _dense(gen, (I, D), dt,
                            0.02 / math.sqrt(2 * cfg.num_layers)),
     }
@@ -210,6 +254,12 @@ def _rwkv_params(gen, cfg: ModelConfig):
 
 
 def _block_params(gen, cfg: ModelConfig, spec: dict, tp: int):
+    if spec["ffn"] is None:                 # one mixer (layer_pattern)
+        kind = spec["kind"]
+        mixer = (_mamba2_params(gen, cfg) if kind == "mamba2" else
+                 _moe_params(gen, cfg) if kind == "moe" else
+                 _attn_params(gen, cfg, tp))
+        return {"ln1": _norm_init(gen, cfg.d_model), kind: mixer}
     p = {"ln1": _norm_init(gen, cfg.d_model),
          "ln2": _norm_init(gen, cfg.d_model)}
     if spec["kind"] == "rwkv":
@@ -295,29 +345,25 @@ def _apply_block(p, spec, x, cfg, rules=None, *, cache=None,
         return residual_carry(_apply_rwkv_block(p, x, cfg, rules, cache,
                                              use_kernels), rules), aux
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if spec["ffn"] is None:                 # one mixer (layer_pattern)
+        if rules is not None:
+            raise NotImplementedError(f"{cfg.name}: the blocks of a layer "
+                                      f"pattern have no sharded path")
+        if spec["kind"] == "moe":
+            o, aux = L.moe_ffn(p["moe"], h, cfg.moe)
+        elif spec["kind"] == "mamba2":
+            o = _mamba_mixer(L.mamba2, p["mamba2"], h, cfg, rules, cache)
+        else:
+            o = _self_attn(p["attn"], spec, h, cfg, rules, cache,
+                           cache_index, mode, use_kernels)
+        return x + o, aux
     if spec["kind"] == "mamba":
-        st = cache["mamba"] if cache is not None else None
-        o, mst = L.mamba(p["mamba"], h, cfg, rules, state=st)
-        if cache is not None:
-            for name, new in mst.items():
-                cache["mamba"][name].copy_(new)
+        o = _mamba_mixer(L.mamba, p["mamba"], h, cfg, rules, cache)
     elif spec["kind"] == "xattn":
         o = _cross(p["attn"], h, cfg, rules, cache, mode, extra)
     else:
-        use_rope = not cfg.encoder_layers     # whisper: abs pos, no rope
-        if mode == "decode":
-            o, _ = L.decode_attention(p["attn"], h, cfg, rules,
-                                      cache=cache["kv"],
-                                      cache_index=cache_index,
-                                      use_rope=use_rope,
-                                      use_kernels=use_kernels)
-        else:
-            kvc_in = cache["kv"] if cache is not None else None
-            o, _ = L.self_attention(p["attn"], h, cfg, rules,
-                                    causal=spec.get("causal", cfg.causal),
-                                    use_rope=use_rope, kv_cache=kvc_in,
-                                    cache_index=0 if kvc_in is not None
-                                    else None, use_kernels=use_kernels)
+        o = _self_attn(p["attn"], spec, h, cfg, rules, cache, cache_index,
+                       mode, use_kernels)
         if spec.get("cross"):            # whisper decoder cross-attn sublayer
             x = residual_carry(x + o, rules)
             h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
@@ -329,6 +375,36 @@ def _apply_block(p, spec, x, cfg, rules=None, *, cache=None,
     else:
         o = L.swiglu(p["ffn"], h, rules)
     return residual_carry(x + o, rules), aux
+
+
+def _mamba_mixer(fn, p, h, cfg, rules, cache):
+    """A Mamba (or Mamba-2) mixer from the cache's states, if any, which
+    take the new states in place."""
+    o, new = fn(p, h, cfg, rules, state=None if cache is None
+                else cache["mamba"])
+    if cache is not None:
+        for name, t in new.items():
+            cache["mamba"][name].copy_(t)
+    return o
+
+
+def _self_attn(p, spec, h, cfg, rules, cache, cache_index, mode,
+               use_kernels):
+    """Self-attention of a block: over the KV cache in decode, else over
+    the sequence (writing its k and v into the cache, if any)."""
+    # whisper (absolute positions) and Nemotron-H use no rope
+    use_rope = cfg.use_rope and not cfg.encoder_layers
+    if mode == "decode":
+        return L.decode_attention(p, h, cfg, rules, cache=cache["kv"],
+                                  cache_index=cache_index,
+                                  use_rope=use_rope,
+                                  use_kernels=use_kernels)[0]
+    kvc_in = cache["kv"] if cache is not None else None
+    return L.self_attention(p, h, cfg, rules,
+                            causal=spec.get("causal", cfg.causal),
+                            use_rope=use_rope, kv_cache=kvc_in,
+                            cache_index=0 if kvc_in is not None else None,
+                            use_kernels=use_kernels)[0]
 
 
 def _cross(p, h, cfg, rules, cache, mode, extra):
@@ -525,9 +601,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                 dtype=torch.bfloat16, *, device, cross_len=None) -> dict:
     """Zeroed caches: KV rings of W = min(max_len, sliding window) slots;
     cross-attention k and v (`xkv`) over T = cross_len or the config's
-    image tokens or audio frames; Mamba conv states (in `dtype`) and SSM
-    states (float32); RWKV6's shift states (in `dtype`) and WKV states
-    (float32). `index` is an int (the next position to write)."""
+    image tokens or audio frames; Mamba and Mamba-2 conv states (in
+    `dtype`) and SSM states (float32); RWKV6's shift states (in `dtype`)
+    and WKV states (float32); nothing for a MoE block of a layer pattern.
+    `index` is an int (the next position to write)."""
     specs = block_specs(cfg)
     n_periods = cfg.num_layers // len(specs)
     hd = cfg.head_dim_()
@@ -548,6 +625,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
             I = m.expand * D
             return {"mamba": {"conv": zeros(m.d_conv - 1, I),
                               "ssm": zeros(I, m.d_state, dt=torch.float32)}}
+        if spec["kind"] == "mamba2":
+            m = cfg.mamba
+            return {"mamba": {"conv": zeros(m.d_conv - 1, m.conv_width()),
+                              "ssm": zeros(m.n_heads, m.head_dim, m.d_state,
+                                           dt=torch.float32)}}
+        if spec["kind"] == "moe":           # a MoE block holds no state
+            return {}
         c = {}
         if spec["kind"] == "attn":
             W = min(max_len, cfg.sliding_window or max_len)

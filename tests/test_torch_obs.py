@@ -234,9 +234,10 @@ def test_train_step_span_tree(tracing, remat):
 
 @pytest.mark.parametrize("N,S", [(2, 16), (4, 1)], ids=["prefill", "decode"])
 def test_moe_counters_match_a_plain_count(tracing, N, S):
-    """`moe.kept`, `moe.slots` and `moe.experts_hit` of a route, against a
-    count of `_moe_route`'s own outputs: at prefill, and at a decode
-    step of 4 rows, where 16 experts, top-2, give capacity 1."""
+    """`moe.choices`, `moe.kept`, `moe.slots` and `moe.experts_hit` of a
+    route, against a count of `_moe_route`'s own outputs: at prefill, and
+    at a decode step of 4 rows, where 16 experts, top-2, give capacity
+    1."""
     E, K, D, F = 16, 2, 32, 16
     cfg = MoEConfig(num_experts=E, top_k=K, d_ff=F, capacity_factor=1.25)
     g = torch.Generator().manual_seed(3)
@@ -261,7 +262,8 @@ def test_moe_counters_match_a_plain_count(tracing, N, S):
     kept = gate > 0
     assert route["attrs"] == {"experts": E}
     assert route["counts"] == {
-        "moe.kept": int(kept.sum()), "moe.slots": E * C,
+        "moe.choices": N * S * K, "moe.kept": int(kept.sum()),
+        "moe.slots": E * C,
         "moe.experts_hit": len(set(ids[kept].tolist()))}
 
 
