@@ -42,7 +42,11 @@ order; any failure ends the run with a non-zero exit and no result line:
               its plain form on float32 copies to 1e-5, its gradient
               (autograd of the plain form) against plain autograd, and
               kernel and plain form timed by CUDA events (the kernel also
-              device-only);
+              device-only); the MoE route's positions (one launch a call)
+              at nemotron-3-nano-30b-a3b's and jamba-v0.1-52b's prefill
+              and decode shapes and on ROUTE_SWEEP, equal to their plain
+              form bit for bit, with counts, both timed by CUDA events and
+              device-only at the two prefill shapes;
 4. serve   -- serve h2o-danube-1.8b at full width and depth (random bf16
               weights from --seed): batch 4, prompt 4160 (> the 4096
               window), 32 generated tokens, through the kernels; check the
@@ -61,8 +65,8 @@ order; any failure ends the run with a non-zero exit and no result line:
               of 32 layers: Mamba, MoE and one attention layer; random bf16
               weights from --seed): batch 4, prompt 4096, 32 generated
               tokens, through the kernels; check the launch counts (one
-              flash launch, 31 decode launches, 7 scan launches in the
-              prefill and in each decode step). Teacher-force the same
+              flash launch, 31 decode launches, 7 scan launches and 4
+              route launches in the prefill and in each decode step). Teacher-force the same
               tokens through the plain path in bf16, recording every
               expert choice of both paths: no choice may differ upstream
               of the attention layer (the paths run the same code there),
@@ -277,6 +281,15 @@ MAMBA_SWEEP = [(2, 1, 64, 16), (2, 7, 40, 16), (1, 300, 100, 16),
                (2, 512, 96, 16), (1, 4096, 64, 16), (3, 33, 32, 16),
                (1, 65, 72, 16)]           # B, S, I, N
 SSM_TOL = 1e-5
+# the MoE route's positions (N, K, E, skew: the share of tokens whose first
+# choice is expert 0, which then overflows its capacity): the two serving
+# cells' prefills (nemotron-3-nano-30b-a3b 2 x 8192 top-6 of 128, skewed;
+# jamba-v0.1-52b 4 x 4096 top-2 of 16) and decode steps, then E 384 with
+# K 8 and N off the kernel's 1,024-choice tiles
+ROUTE_PREFILLS = {"nemotron-3-nano-30b-a3b": (16384, 6, 128, 0.3),
+                  HYBRID: (16384, 2, 16, 0.0)}
+ROUTE_SWEEP = [(2, 6, 128, 0.0), (4, 2, 16, 0.0), (4096, 8, 384, 0.2),
+               (1, 6, 128, 0.0), (33, 2, 16, 0.5), (1000, 8, 384, 0.0)]
 # the train phase
 RWKV = "rwkv6-7b"
 LOVELOCK = ("lovelock-20m", 8, 256, 3)        # arch, batch, seq, steps
@@ -707,12 +720,14 @@ def phase_kernels(torch, seed: int) -> list:
 
     wkv = _wkv6_kernel(torch, gen)
     ssm = _mamba_kernel(torch, gen)
+    route = _moe_route_kernel(torch, gen)
 
     bad = []
     for name, cases in (("flash_attention", flash_cases),
                         ("decode_attention", decode_cases),
                         ("wkv6", wkv["cases"]),
-                        ("mamba_scan", ssm["cases"])):
+                        ("mamba_scan", ssm["cases"]),
+                        ("moe_route", route["cases"])):
         for c in cases:
             print(f"  {name} {c['dtype']:>14} {str(c['shape']):<40} "
                   f"max_abs_err {c['max_abs_err']:.3e}, beyond the "
@@ -756,6 +771,12 @@ def phase_kernels(torch, seed: int) -> list:
     if not ssm["grad_err"] <= SSM_TOL:
         _fail(f"mamba_scan: gradient off by {ssm['grad_err']} of its "
               f"largest |g|")
+    for arch, t in route["timed"].items():
+        print(f"  moe_route at {arch}'s prefill {t['shape']}: {t['ms']:.4f}"
+              f" ms (plain {t['plain_ms']:.4f} ms, no library call; bound "
+              f"{t['bound_ms']:.6f} ms by bytes; device only "
+              f"{_fmt(t['device_ms'])} ms, plain "
+              f"{_fmt(t['plain_device_ms'])} ms)")
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -811,6 +832,16 @@ def phase_kernels(torch, seed: int) -> list:
          "library_note": "no PyTorch call computes the selective scan",
          "shape": ssm["shape"], "grad_err": ssm["grad_err"],
          "cases": ssm["cases"]},
+        {"name": "moe_route", "route": "cuda",
+         "source": "src/repro_torch/kernels/moe_route/csrc/moe_route.cu",
+         "replaces": None,
+         "replaces_note": "no Pallas kernel: the reference counts the "
+                          "positions with jnp.cumsum over a one-hot",
+         "launches": None, "max_abs_err": 0,
+         **{f"at_{arch}": t for arch, t in route["timed"].items()},
+         "library_ms": None, "library_device_ms": None,
+         "library_note": "no PyTorch call computes the positions",
+         "cases": route["cases"]},
     ]
 
 
@@ -973,6 +1004,54 @@ def _mamba_kernel(torch, gen) -> dict:
             "grad_err": grad_err, **timed}
 
 
+def _moe_route_kernel(torch, gen) -> dict:
+    """route_positions against its plain form on the card, positions and
+    counts bit for bit, one launch a call: the two prefill shapes of
+    ROUTE_PREFILLS and ROUTE_SWEEP; kernel and plain form timed at the
+    prefill shapes, by CUDA events and device-only."""
+    from repro_torch.kernels.moe_route import ops as rops
+    from repro_torch.kernels.moe_route.ref import route_positions_ref
+
+    def ids_of(N, K, E, skew):
+        scores = torch.rand((N, E), generator=gen, device=DEVICE)
+        scores[:, 0] += (torch.rand(N, generator=gen, device=DEVICE)
+                         < skew).float()
+        return torch.topk(scores, K, dim=-1)[1]
+
+    def held(case, ids):
+        n = rops.route_positions.launches
+        pos, counts = rops.route_positions(ids, case[2], True)
+        torch.cuda.synchronize()
+        one = rops.route_positions.launches == n + 1
+        want_pos, want_counts = route_positions_ref(ids, case[2], True)
+        same = bool(torch.equal(pos, want_pos)
+                    and torch.equal(counts, want_counts))
+        err = 0 if same else int((pos - want_pos).abs().max())
+        return {"shape": list(case), "dtype": "torch.int64",
+                "max_abs_err": err, "over_rel": err, "tol": 0,
+                "launched": one, "ok": one and same}
+
+    cases, timed = [], {}
+    for arch, case in ROUTE_PREFILLS.items():
+        ids = ids_of(*case)
+        cases.append(held(case, ids))
+        E = case[2]
+        timed[arch] = {
+            "shape": list(case),
+            "ms": _time_ms(lambda i: rops.route_positions(ids, E), reps=50),
+            "device_ms": _device_ms(torch, lambda i: rops.route_positions(
+                ids, E), reps=50),
+            "plain_ms": _time_ms(lambda i: route_positions_ref(ids, E),
+                                 reps=5),
+            "plain_device_ms": _device_ms(torch, lambda i: (
+                route_positions_ref(ids, E)), reps=5),
+            # each id read and each position written once, int64
+            "bound_ms": _bound(0.0, 16.0 * ids.numel(), "float32")[0],
+            "bound_by": "bytes"}
+    cases += [held(c, ids_of(*c)) for c in ROUTE_SWEEP]
+    return {"cases": cases, "timed": timed}
+
+
 def _config(arch, **replace):
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(arch), **replace)
@@ -996,7 +1075,7 @@ def phase_serve(torch, seed: int, card: str) -> dict:
         generator=torch.Generator(DEVICE).manual_seed(seed + 1))
     want = {"flash_attention": cfg.num_layers,
             "decode_attention": cfg.num_layers * (GEN - 1),
-            "mamba_scan": 0}
+            "mamba_scan": 0, "moe_route": 0}
     tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
         torch, cfg, params, prompts, None, want)
 
@@ -1312,12 +1391,15 @@ def phase_serve_hybrid(torch, seed: int, card: str) -> tuple:
     prompts = torch.randint(
         0, cfg.vocab_size, (BATCH, HY_PROMPT), device=DEVICE,
         generator=torch.Generator(DEVICE).manual_seed(seed + 1))
-    # a scan launch a Mamba layer, in the prefill and in each decode step
+    # a scan launch a Mamba layer and a route launch a MoE layer, in the
+    # prefill and in each decode step
     n_mamba = (sum(sp["kind"] == "mamba" for sp in specs)
                * (cfg.num_layers // len(specs)))
+    n_moe = (sum(sp["ffn"] == "moe" for sp in specs)
+             * (cfg.num_layers // len(specs)))
     want = {"flash_attention": n_attn,
             "decode_attention": n_attn * (GEN - 1),
-            "mamba_scan": n_mamba * GEN}
+            "mamba_scan": n_mamba * GEN, "moe_route": n_moe * GEN}
     with _recorded_routes() as kernel_routes:
         tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
             torch, cfg, params, prompts, None, want)
@@ -1422,12 +1504,14 @@ def _serve_counted(torch, cfg, params, prompts, extra, want, targets=()):
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.mamba_scan import ops as mops
+    from repro_torch.kernels.moe_route import ops as rops
     from repro_torch.launch import serve as S
     B, P = prompts.shape
     torch.cuda.reset_peak_memory_stats()
     fops.flash_attention.launches = 0
     dops.decode_attention.launches = 0
     mops.mamba_scan.launches = 0
+    rops.route_positions.launches = 0
     with _timed(torch, targets) as spans, _steps_timed(torch, S) as steps:
         tokens, stats, logits = S.serve(
             cfg, batch=B, prompt_len=P, gen=GEN, use_kernels=True,
@@ -1443,7 +1527,8 @@ def _serve_counted(torch, cfg, params, prompts, extra, want, targets=()):
                  decode_steady_tokens_per_s=B / steady)
     launches = {"flash_attention": fops.flash_attention.launches,
                 "decode_attention": dops.decode_attention.launches,
-                "mamba_scan": mops.mamba_scan.launches}
+                "mamba_scan": mops.mamba_scan.launches,
+                "moe_route": rops.route_positions.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  launches {launches} (expected {want})")
     if launches != want:
@@ -1553,7 +1638,7 @@ def _serve_whisper(torch, seed: int, card: str) -> tuple:
     extra = {"audio_frames": frames}
     want = {"flash_attention": cfg.encoder_layers + cfg.num_layers,
             "decode_attention": cfg.num_layers * (GEN - 1),
-            "mamba_scan": 0}
+            "mamba_scan": 0, "moe_route": 0}
     tokens, stats, logits, launches, peak_gb, timed = _serve_counted(
         torch, cfg, params, prompts, extra, want,
         targets=[(M, "_run_encoder")])
@@ -1655,7 +1740,7 @@ def _serve_vlm(torch, seed: int, card: str) -> tuple:
         torch.bfloat16)
     extra = {"image_embeds": embeds}
     want = {"flash_attention": n_attn, "decode_attention": n_attn * (GEN - 1),
-            "mamba_scan": 0}
+            "mamba_scan": 0, "moe_route": 0}
     tokens, stats, logits, launches, peak_gb, _ = _serve_counted(
         torch, cfg, params, prompts, extra, want)
     print(f"  serve {VLM} ({cfg.num_layers} of 100 layers, bf16, "
@@ -2725,6 +2810,7 @@ def main() -> int:
                for name in ("flash_attention", "decode_attention")}
     by_path["wkv6"] = {}
     by_path["mamba_scan"] = {hy_path: hy_launches["mamba_scan"]}
+    by_path["moe_route"] = {hy_path: hy_launches["moe_route"]}
     for path, n in train_launches.items():
         by_path["wkv6" if RWKV in path else "flash_attention"][path] = n
     by_path["flash_attention"].update(dist_launches)

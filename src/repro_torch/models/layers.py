@@ -42,6 +42,8 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.mamba_scan import ops as mops
 from repro_torch.kernels.mamba_scan.ref import (
     mamba_ssm_chunked as _mamba_ssm_chunked)
+from repro_torch.kernels.moe_route import ops as rops
+from repro_torch.kernels.moe_route.ref import route_positions_ref
 from repro_torch.kernels.rwkv6 import ops as wops
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked as _wkv6_chunked
 from repro_torch.sharding.rules import residual_carry
@@ -394,6 +396,15 @@ def relu2(p, x, rules=None):
 FFNS = {"swiglu": swiglu, "relu2": relu2}
 
 
+def _route_positions(expert_ids, E, with_counts):
+    """The kernel's wrapper `route_positions` on contiguous ids (the
+    plain form for CPU tensors), or the plain form itself on meta tensors,
+    which hold no data for a kernel (the dry-run's trace)."""
+    if expert_ids.device.type == "meta":
+        return route_positions_ref(expert_ids, E, with_counts)
+    return rops.route_positions(expert_ids.contiguous(), E, with_counts)
+
+
 def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
     """Shared routing: returns (gate_vals, expert_ids, pos, C, probs).
 
@@ -403,8 +414,8 @@ def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
     plus p["router_bias"] are chosen, and the gates are the chosen scores
     over their sum (plus 1e-20), times `routed_scaling`. Each (token,
     k)'s position within its expert is
-    counted in (k-major, token) order; gates of positions past the
-    capacity C are 0.
+    counted in (k-major, token) order (`_route_positions`); gates of
+    positions past the capacity C are 0.
 
     On one rank's rows of a larger batch, C comes from the batch's
     `n_tokens`, and `offsets(counts)` maps this rank's (K, E) choice
@@ -427,14 +438,9 @@ def _moe_route(p, xt, moe_cfg, n_tokens=None, offsets=None):
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(-1, keepdim=True), min=1e-9)
     C = max(1, int(moe_cfg.capacity_factor * K * (n_tokens or N) / E))
-    onehot = F.one_hot(expert_ids, E)                             # (N,K,E)
-    flat = onehot.transpose(0, 1).reshape(K * N, E)
-    pos_flat = torch.cumsum(flat, dim=0) - flat                   # (K*N,E)
+    pos, counts = _route_positions(expert_ids, E, offsets is not None)
     if offsets is not None:
-        pos_flat = (pos_flat.reshape(K, N, E)
-                    + offsets(flat.reshape(K, N, E).sum(1))[:, None, :]
-                    ).reshape(K * N, E)
-    pos = (pos_flat.reshape(K, N, E).transpose(0, 1) * onehot).sum(-1)
+        pos = pos + offsets(counts).gather(1, expert_ids.t()).t()
     keep = (pos < C).to(gate_vals.dtype)
     gate_vals = gate_vals * keep
     if n_tokens is None and obs.enabled():

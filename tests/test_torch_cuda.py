@@ -25,6 +25,9 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as mops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     mamba_ssm_chunked)
+from repro_torch.kernels.moe_route import ops as rops  # noqa: E402
+from repro_torch.kernels.moe_route.ref import (  # noqa: E402
+    route_positions_ref)
 from repro_torch.kernels.rwkv6 import ops as wops  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 
@@ -372,6 +375,91 @@ def test_mamba_scan_rejects_what_it_does_not_take(cuda_device):
                         Bm[:, :1].expand(1, 601, 16).contiguous(), x, h0)
 
 
+def _route_ids(dev, seed, N, K, E, skew):
+    """(N, K) int64 top-k ids of random scores on the card, with expert 0
+    first for a `skew` share of the tokens (it then overflows its 1.25 K N
+    / E slots)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    scores = torch.rand((N, E), generator=g, device=dev)
+    scores[:, 0] += (torch.rand(N, generator=g, device=dev) < skew).float()
+    return torch.topk(scores, K, dim=-1)[1]
+
+
+# (N, K, E, skew): nemotron-3-nano-30b-a3b's prefill (2 x 8192 tokens,
+# top-6 of 128) with a skewed router, jamba-v0.1-52b's (4 x 4096, top-2 of
+# 16), a decode step of each (one block, one launch), kimi-k2's E 384 with
+# K 8, and ragged N (one token; 33, 1000: not whole tiles of 1024)
+ROUTE_CASES = [(16384, 6, 128, 0.3), (16384, 2, 16, 0.0), (2, 6, 128, 0.0),
+               (4, 2, 16, 0.0), (4096, 8, 384, 0.2), (1, 6, 128, 0.0),
+               (33, 2, 16, 0.5), (1000, 8, 384, 0.0)]
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("N,K,E,skew", ROUTE_CASES)
+def test_moe_route_kernel_on_card(cuda_device, N, K, E, skew, with_counts):
+    """Positions, and counts where asked, equal the plain form's bit for
+    bit (torch.equal), twice; one launch a call."""
+    ids = _route_ids(cuda_device, N + E, N, K, E, skew)
+    want_pos, want_counts = route_positions_ref(ids, E, with_counts)
+    outs = []
+    for _ in range(2):
+        n = rops.route_positions.launches
+        outs.append(rops.route_positions(ids, E, with_counts))
+        torch.cuda.synchronize()
+        assert rops.route_positions.launches == n + 1
+    for pos, counts in outs:
+        assert pos.dtype == torch.int64 and pos.shape == (N, K)
+        assert torch.equal(pos, want_pos)
+        if with_counts:
+            assert torch.equal(counts, want_counts)
+        else:
+            assert counts is None
+    if skew:
+        assert int(want_pos.max()) >= int(1.25 * K * N / E)   # overflow
+
+
+def test_moe_route_with_offsets_on_card(cuda_device):
+    """`_moe_route` on a rank's rows (`offsets` of its counts, as
+    `_moe_sharded` gives them) on the card equals the CPU's: ids,
+    positions and the kept gates exactly, overflow included, the gates'
+    values to 1e-5 (the router's float32 product rounds in another
+    order)."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    cfg = _cfg("jamba-v0.1-52b")
+    moe = dataclasses.replace(cfg.moe, dispatch="scatter")
+    rng = np.random.default_rng(5)
+    D, E = cfg.d_model, moe.num_experts
+    router = rng.standard_normal((D, E)).astype(np.float32) * 0.3
+    router[:, 0] += 0.05
+    x = rng.standard_normal((64, D)).astype(np.float32) + 1.0
+
+    def offsets(counts):     # the choices of 3 earlier ranks like this one
+        return 3 * counts.sum(0) + torch.cumsum(counts, 0) - counts
+    routes = [L._moe_route({"router": torch.from_numpy(router).to(dev)},
+                           torch.from_numpy(x).to(dev), moe,
+                           n_tokens=4 * 64, offsets=offsets)
+              for dev in ("cpu", cuda_device)]
+    assert (routes[0][2] >= routes[0][3]).any()           # some overflow
+    for a, b in zip(routes[1][1:3], routes[0][1:3]):
+        np.testing.assert_array_equal(to_np(a), to_np(b))
+    gates, want = (to_np(r[0]) for r in routes)
+    np.testing.assert_array_equal(gates > 0, want > 0)
+    np.testing.assert_allclose(gates, want, atol=1e-5, rtol=0)
+
+
+def test_moe_route_rejects_what_it_does_not_take(cuda_device):
+    ids = _route_ids(cuda_device, 0, 64, 2, 16, 0.0)
+    with pytest.raises(ValueError, match="not cuda"):      # a CPU tensor
+        rops._launch_kernel(ids.cpu(), 16, False)          # at the kernel
+    with pytest.raises(TypeError, match="int64"):
+        rops.route_positions(ids.int(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.route_positions(ids.t().contiguous().t(), 16)
+    with pytest.raises(ValueError, match="experts"):
+        rops.route_positions(ids, 1025)
+
+
 # ---------------------------------------------------------------------------
 # MoE, Mamba, the hybrid model and the checkpointer: the same code on the
 # card and on the CPU (float32; TF32 is off for matmuls by default)
@@ -451,13 +539,15 @@ def test_hybrid_model_on_card(cuda_device):
     """jamba smoke in float32 (heads of 32, a width the kernels are built
     for) through the kernels on the card: prefill of 10 tokens and 4
     decode steps, logits against the CPU's plain path to 1e-4, and one
-    flash plus four decode launches, and a scan launch a Mamba layer in
-    the prefill and in each step."""
+    flash plus four decode launches, and a scan launch a Mamba layer and
+    a route launch a MoE layer in the prefill and in each step."""
     from repro_torch.models import model as M
     cfg = _cfg("jamba-v0.1-52b", head_dim=32)
     specs = M.block_specs(cfg)
     n_mamba = (sum(sp["kind"] == "mamba" for sp in specs)
                * (cfg.num_layers // len(specs)))
+    n_moe = (sum(sp["ffn"] == "moe" for sp in specs)
+             * (cfg.num_layers // len(specs)))
     params = M.init_params(torch.Generator().manual_seed(0), cfg)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, 14)))
@@ -466,7 +556,7 @@ def test_hybrid_model_on_card(cuda_device):
         pp = _on(params, dev)
         caches = M.init_caches(cfg, 2, 14, dtype=torch.float32, device=dev)
         fl, dl = fops.flash_attention.launches, dops.decode_attention.launches
-        ml = mops.mamba_scan.launches
+        ml, rl = mops.mamba_scan.launches, rops.route_positions.launches
         lg, _, caches = M.forward(pp, cfg, toks[:, :10].to(dev),
                                   caches=caches)
         steps = [lg[:, -1]]
@@ -477,9 +567,10 @@ def test_hybrid_model_on_card(cuda_device):
         out[str(dev)] = torch.stack(steps, 1)
         launched = (fops.flash_attention.launches - fl,
                     dops.decode_attention.launches - dl,
-                    mops.mamba_scan.launches - ml)
-        assert launched == ((0, 0, 0) if dev == "cpu" else
-                            (1, 4, 5 * n_mamba))
+                    mops.mamba_scan.launches - ml,
+                    rops.route_positions.launches - rl)
+        assert launched == ((0, 0, 0, 0) if dev == "cpu" else
+                            (1, 4, 5 * n_mamba, 5 * n_moe))
     np.testing.assert_allclose(to_np(out[str(cuda_device)]),
                                to_np(out["cpu"]), atol=1e-4, rtol=0)
 
@@ -599,7 +690,7 @@ def test_xattn_model_on_card(cuda_device, arch):
         pp = _on(params, dev)
         caches = M.init_caches(cfg, 2, 14, dtype=torch.float32, device=dev)
         fl, dl = fops.flash_attention.launches, dops.decode_attention.launches
-        ml = mops.mamba_scan.launches
+        ml, rl = mops.mamba_scan.launches, rops.route_positions.launches
         lg, _, caches = M.forward(pp, cfg, toks[:, :10].to(dev),
                                   extra={key: src.to(dev)}, caches=caches,
                                   use_kernels=use_kernels)

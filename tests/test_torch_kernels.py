@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as mops  # noqa: E402
+from repro_torch.kernels.moe_route import ops as rops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wops  # noqa: E402
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -121,7 +122,8 @@ def test_cpu_path_counts_no_launches():
     q, k, v = (torch.from_numpy(x) for x in flash_inputs(3, 1, 16, 2, 1,
                                                           32))
     before = (flash_attention.launches, decode_attention.launches,
-              wops.wkv6.launches, mops.mamba_scan.launches)
+              wops.wkv6.launches, mops.mamba_scan.launches,
+              rops.route_positions.launches)
     flash_attention(q, k, v, causal=True)
     decode_attention(q[:, :1], k, v, torch.zeros(1, 16))
     r = q.transpose(1, 2).contiguous()
@@ -129,12 +131,14 @@ def test_cpu_path_counts_no_launches():
     x = q.reshape(1, 16, 64)
     mops.mamba_scan(x.abs(), -torch.ones(64, 4), x[..., :4], x[..., 4:8], x,
                     torch.zeros(1, 64, 4))
+    rops.route_positions(torch.zeros((16, 2), dtype=torch.int64), 4)
     assert (flash_attention.launches, decode_attention.launches,
-            wops.wkv6.launches, mops.mamba_scan.launches) == before
+            wops.wkv6.launches, mops.mamba_scan.launches,
+            rops.route_positions.launches) == before
 
 
 @pytest.mark.parametrize("kernel", ["flash", "decode", "wkv6",
-                                    "mamba_scan"])
+                                    "mamba_scan", "moe_route"])
 def test_non_cpu_tensor_launches_or_raises(kernel):
     """A tensor that is not on the CPU never takes the plain version."""
     q = torch.zeros((1, 1, 2, 32), device="meta")
@@ -146,6 +150,9 @@ def test_non_cpu_tensor_launches_or_raises(kernel):
             decode_attention(q, k, k, torch.zeros((1, 16), device="meta"))
         elif kernel == "wkv6":
             wops.wkv6(k, k, k, k, torch.zeros((16, 32), device="meta"))
+        elif kernel == "moe_route":
+            rops.route_positions(torch.zeros((16, 2), dtype=torch.int64,
+                                             device="meta"), 4)
         else:
             x = torch.zeros((1, 16, 32), device="meta")
             a = torch.zeros((32, 16), device="meta")
@@ -161,7 +168,7 @@ def _c_params(src: Path, fn: str) -> int:
 def test_c_entries_match_the_ctypes_bindings():
     srcs = _build.sources()
     assert set(srcs) == {"flash_attention", "decode_attention", "wkv6",
-                         "mamba_scan"}
+                         "mamba_scan", "moe_route"}
     # the ctypes bindings declare one argument per C parameter
     assert _c_params(srcs["flash_attention"], "flash_attention_fwd") == \
         len(fops.ARGTYPES)
@@ -170,6 +177,8 @@ def test_c_entries_match_the_ctypes_bindings():
     assert _c_params(srcs["wkv6"], "wkv6_fwd") == len(wops.ARGTYPES)
     assert _c_params(srcs["mamba_scan"], "mamba_scan_fwd") == \
         len(mops.ARGTYPES)
+    assert _c_params(srcs["moe_route"], "moe_route_positions") == \
+        len(rops.ARGTYPES)
     for name in srcs:
         assert _build._library_path(srcs[name]).parent == _build.BUILD_DIR
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
@@ -194,3 +203,28 @@ def test_mamba_scan_wrapper_state_matches_the_kernel():
     m = re.search(r"constexpr int N = (\d+);", src)
     assert m and int(m.group(1)) == mops.D_STATE
     assert re.search(rf"N != {mops.D_STATE}\)", src)
+
+
+@pytest.mark.parametrize("const,attr", [("TILE", "TILE"),
+                                        ("MAX_BLOCKS", "MAX_BLOCKS"),
+                                        ("MAX_E", "MAX_EXPERTS")])
+def test_moe_route_wrapper_constants_match_the_kernel(const, attr):
+    """The wrapper plans the blocks and checks E from Python copies of
+    the kernel's constants; they must agree with the source."""
+    src = _build.sources()["moe_route"].read_text()
+    values = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([\w *]+);", src):
+        values[name] = eval(expr, {}, dict(values))   # TILE = THREADS * ...
+    assert values[const] == getattr(rops, attr)
+
+
+@pytest.mark.parametrize("total", [1, 12, 1024, 1025, 32768, 98304,
+                                   270336, 2 ** 31 - 1])
+def test_moe_route_plan_covers_the_choices(total):
+    """Spans of whole tiles, at most MAX_BLOCKS of them, none empty, that
+    cover the choices; one block (one launch) at a decode step's 12."""
+    blocks, span = rops.plan(total)
+    assert span % rops.TILE == 0 and 1 <= blocks <= rops.MAX_BLOCKS
+    assert (blocks - 1) * span < total <= blocks * span
+    if total <= rops.TILE:
+        assert blocks == 1

@@ -23,6 +23,9 @@ from repro.train import make_train_step as jax_make_train_step  # noqa: E402
 from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.convert import (caches_from_numpy,  # noqa: E402
                                  train_state_from_numpy)
+from repro_torch.kernels.moe_route import ops as rops  # noqa: E402
+from repro_torch.kernels.moe_route.ref import (  # noqa: E402
+    route_positions_ref)
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.optim import OptimizerConfig  # noqa: E402
@@ -99,6 +102,59 @@ def test_moe_route_matches_reference(case):
         assert dropped > 0, "the case must overflow an expert's capacity"
     if case == "balanced":
         assert dropped == 0
+
+
+def _positions_by_loop(ids, E):
+    """Each (token, k) choice's position within its expert and the (K, E)
+    counts, by a Python loop over the choices in (k-major, token) order."""
+    N, K = ids.shape
+    pos = np.zeros((N, K), dtype=np.int64)
+    counts = np.zeros((K, E), dtype=np.int64)
+    seen = [0] * E
+    for k in range(K):
+        for n in range(N):
+            e = int(ids[n, k])
+            pos[n, k] = seen[e]
+            seen[e] += 1
+            counts[k, e] += 1
+    return pos, counts
+
+
+# (N, K, E, skew): the share of choices sent to expert 0 at random; with
+# skew, expert 0 overflows the capacity of its 1.25 K N / E slots
+ROUTE_POSITIONS = [(1, 1, 4, 0.0), (33, 2, 16, 0.0), (64, 6, 128, 0.5),
+                   (200, 8, 384, 0.3), (1000, 2, 16, 0.6)]
+
+
+def _route_ids(seed, N, K, E, skew):
+    """(N, K) int64 ids: K distinct experts a token, as top-k gives them,
+    expert 0 first for a `skew` share of the tokens."""
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.choice(E, K, replace=False) for _ in range(N)])
+    hot = rng.random(N) < skew
+    ids[hot] = np.where(ids[hot] == 0, ids[hot, :1], ids[hot])
+    ids[hot, 0] = 0
+    return torch.from_numpy(ids.astype(np.int64))
+
+
+@pytest.mark.parametrize("N,K,E,skew", ROUTE_POSITIONS)
+def test_route_positions_plain_form_counts_by_loop(N, K, E, skew):
+    """The plain form's positions and counts equal a Python loop's count
+    over the k-major choices, overflow included; on CPU tensors the
+    wrapper is the plain form, bit for bit, and launches nothing."""
+    ids = _route_ids(N + E, N, K, E, skew)
+    want_pos, want_counts = _positions_by_loop(ids.numpy(), E)
+    pos, counts = route_positions_ref(ids, E, with_counts=True)
+    np.testing.assert_array_equal(to_np(pos), want_pos)
+    np.testing.assert_array_equal(to_np(counts), want_counts)
+    assert route_positions_ref(ids, E)[1] is None
+    if skew:
+        assert want_pos.max() >= max(1, int(1.25 * K * N / E))
+    before = rops.route_positions.launches
+    got_pos, got_counts = rops.route_positions(ids, E, with_counts=True)
+    assert rops.route_positions.launches == before
+    assert got_pos.dtype == got_counts.dtype == torch.int64
+    assert torch.equal(got_pos, pos) and torch.equal(got_counts, counts)
 
 
 @pytest.mark.parametrize("case", ["balanced", "overflow", "top8_shared"])
