@@ -137,10 +137,14 @@ class Cell:
 
 class Window:
     """The measured window: the host clock over whole steps or batches,
-    with the tracer (if any) around it."""
+    with the tracer (if any) around it and the run's diagnostics probe
+    read at each clock reading (drivers read the clock in the window
+    only)."""
 
     def __init__(self, cell: Cell, tracer):
+        from portbench.diagnostics import Probe
         self.cell, self.tracer = cell, tracer
+        self.probe = Probe(cell.device)
         self.elapsed = None
 
     def annotate(self, name):
@@ -152,16 +156,20 @@ class Window:
         if self.cell.device.type == "cuda":
             import torch
             torch.cuda.synchronize(self.cell.device)
-        return time.perf_counter()
+        t = time.perf_counter()
+        self.probe.sample()
+        return t
 
     @contextlib.contextmanager
     def open(self):
         if self.tracer is not None:
             self.tracer.start()
+        self.probe.open()
         self.t0 = self.clock()
         self.cell.t_window = self.t0
         yield self
         self.elapsed = self.clock() - self.t0
+        self.probe.close()
         if self.tracer is not None:
             self.tracer.stop()
 
@@ -245,6 +253,9 @@ def execute(cell: Cell, t_start: float) -> dict:
         dev["window_s"] = view.trace_window_s
         result["breakdown"] = {"device_ops": view.device_ops(),
                                "idle_gaps": view.idle_gaps()}
+    result["diagnostics"] = window.probe.report(out["series"])
+    print("portbench: series " + json.dumps(
+        {**out["series"], "card": window.probe.samples}), file=sys.stderr)
     result["checks"] = checks
     return result
 

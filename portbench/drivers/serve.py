@@ -54,19 +54,27 @@ def serve_batches(cell, params, pool, count=None, window=None):
 def gaps(cell, params, pool, done, picks, quant=None) -> list:
     """Per picked batch, the served tokens' gaps (B, G) below the
     reference's best; with `quant`, the gaps of the tokens that the
-    control (the reference in that precision) puts first instead."""
-    ref, m = cell.reference, cell.model
+    control (the reference in that precision) puts first instead. A
+    reference module's `BATCHES_A_FORWARD` picked batches go through one
+    forward, each routed as the batch it was served in."""
+    ref, m, B = cell.reference, cell.model, cell.traffic["batch"]
+    per = getattr(ref, "BATCHES_A_FORWARD", 1)
+    kw = {"batch": B} if per > 1 else {}
     out = []
-    for i in picks:
-        prompts, served = pool[i % len(pool)], done[i][3]
-        logits = ref.served_logits(params, m, prompts, served)
+    for j in range(0, len(picks), per):
+        chunk = picks[j:j + per]
+        prompts = torch.cat([pool[i % len(pool)] for i in chunk])
+        served = torch.cat([done[i][3] for i in chunk])
+        logits = ref.served_logits(params, m, prompts, served, **kw)
         if quant is None:
-            out.append(ref.token_gap(logits, served))
+            found = ref.token_gap(logits, served)
         else:
-            low = ref.served_logits(params, m, prompts, served, quant=quant)
-            out.append(ref.token_gap(logits, low.argmax(-1)))
+            low = ref.served_logits(params, m, prompts, served, quant=quant,
+                                    **kw)
+            found = ref.token_gap(logits, low.argmax(-1))
             del low
         del logits
+        out.extend(found.split(B))
     return out
 
 
@@ -96,14 +104,19 @@ def run(cell, window) -> dict:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    lat = [te - tb for tb, te, _, _ in done for _ in range(B)]
+    batch_s = [te - tb for tb, te, _, _ in done]
+    lat = [t for t in batch_s for _ in range(B)]
+    series = {"batch_s": batch_s,
+              "prefill_s": [d[2]["prefill_s"] for d in done],
+              "decode_s": [d[2]["decode_s"] for d in done]}
     found = gaps(cell, params, pool, done, picks(cell, len(done)))
     return {"attempted": len(done) * B, "failed": 0, "window_s": elapsed,
             "e2e": {"serve_tokens_per_s": len(done) * B * (P + G) / elapsed,
                     "request_p95_ms": bench.nearest_rank(lat, 0.95) * 1e3},
             "work": {"kind": "serve", "batches": len(done), "batch": B,
                      "prompt_len": P, "gen": G,
-                     "prefill_s": [d[2]["prefill_s"] for d in done],
-                     "decode_s": [d[2]["decode_s"] for d in done]},
+                     "prefill_s": series["prefill_s"],
+                     "decode_s": series["decode_s"]},
+            "series": series,
             "numbers": numbers(found),
             "memory_peak_bytes": peak}

@@ -92,14 +92,18 @@ def run(cell, window) -> dict:
     first = tr["first_steps"]
     state, step, prog = first_steps(cell, params, batches[:first])
     B, S = tr["batch"], tr["seq_len"]
-    losses = []
+    losses, step_s = [], []
     with window.open():
+        t = window.t0
         while True:
             with window.annotate("train_step"):
                 state, met = step(state,
                                   batches[(first + len(losses)) % len(batches)])
             losses.append(met["loss"])
-            if window.clock() - window.t0 >= cell.seconds:
+            now = window.clock()
+            step_s.append(now - t)
+            t = now
+            if now - window.t0 >= cell.seconds:
                 break
     n, elapsed = len(losses), window.elapsed
     cuda = dev.type == "cuda"
@@ -114,5 +118,6 @@ def run(cell, window) -> dict:
     return {"attempted": n, "failed": failed, "window_s": elapsed,
             "e2e": {"train_tokens_per_s": n * B * S / elapsed},
             "work": {"kind": "train", "steps": n, "batch": B, "seq_len": S},
+            "series": {"step_s": step_s},
             "numbers": compare(prog, refr, tr.get("loss_steps")),
             "memory_peak_bytes": peak}

@@ -26,8 +26,8 @@ Departures from the published model, which the program shares:
   by scale, starting at 1); the same function at init.
 - The MoE keeps `decoder.py`'s capacity rule: C = max(1, int(
   capacity_factor * k * N / E)) slots an expert over a routing group of N
-  tokens (a prefill's prompts, then each decode step's token a row), a
-  choice's place in its expert's queue counted in (k, token) order, a
+  tokens (a served batch's prompts, then each decode step's token a row),
+  a choice's place in its expert's queue counted in (k, token) order, a
   choice past C adding nothing. The published model drops none.
 - The weights are drawn (`make_params`). The correction bias, which
   training's loss-free balancing sets so that each expert takes its
@@ -38,7 +38,10 @@ Departures from the published model, which the program shares:
   from b = 0, the loads counted over the top-k of s + b.
 
 Everything is computed in float32 with TF32 off, each layer's weights made
-float32 as it runs, and the head only at the served positions.
+float32 as it runs, and the head only at the served positions. One forward
+may hold several served batches (`BATCHES_A_FORWARD`), each routed as its
+own: the token-by-token Mamba-2 recurrence costs the host the same for
+more rows.
 `quant="fp8"` and `quant="route_bf16"` are `decoder.py`'s control and
 witness.
 """
@@ -54,7 +57,10 @@ from portbench.generate import zipf_markov
 from portbench.reference.decoder import (F32, Ops, _put,  # noqa: F401
                                          exact_float32, rms_norm, token_gap)
 
-QUERY_BLOCK = 512           # attention's queries a block
+QUERY_ROWS = 1024           # attention's queries a block, over all rows
+# served batches a forward of `served_logits` holds, as the benchmark's
+# serving driver reads them
+BATCHES_A_FORWARD = 4
 # the correction bias's calibration text: rows x tokens from its own stream
 BALANCE_ROWS, BALANCE_LEN, BALANCE_STREAM = 2, 2048, 1 << 20
 BALANCE_STEPS, BALANCE_RATE = 64, 0.01
@@ -223,27 +229,30 @@ def relu2(x, w_up, w_down, ops):
                                                           w_up))), w_down)
 
 
-def moe(p, x, m, ops, groups):
+def moe(p, x, m, ops, groups, batch=None):
     """Token-choice top-k MoE with per-group capacity; `groups` are the
-    (start, end) position ranges routed together, rows in order within
-    each."""
+    (start, end) position ranges routed together over each `batch` rows
+    (all, by default), rows in order within each."""
     mc = m["moe"]
     E, k = mc["num_experts"], mc["top_k"]
     B, T, D = x.shape
+    batch = batch or B
     s = torch.sigmoid(ops.mm("btd,de->bte", ops.route(x), p["router"]))
     ids = torch.topk(s + p["router_bias"], k, dim=-1)[1]        # (B,T,k)
     gates = s.gather(-1, ids)
     gates = gates / (gates.sum(-1, keepdim=True) + 1e-20) * \
         mc["routed_scaling"]
     keep = torch.zeros_like(gates, dtype=torch.bool)
-    for s0, s1 in groups:
-        g_ids = ids[:, s0:s1].reshape(-1, k)                  # (N,k)
-        n = g_ids.shape[0]
-        cap = max(1, int(mc["capacity_factor"] * k * n / E))
-        order = F.one_hot(g_ids.t().reshape(-1), E)           # (k*N,E)
-        place = ((torch.cumsum(order, 0) - order) * order).sum(-1)
-        keep[:, s0:s1] = (place < cap).reshape(k, n).t().reshape(
-            B, s1 - s0, k)
+    for r0 in range(0, B, batch):
+        r1 = min(B, r0 + batch)
+        for s0, s1 in groups:
+            g_ids = ids[r0:r1, s0:s1].reshape(-1, k)          # (N,k)
+            n = g_ids.shape[0]
+            cap = max(1, int(mc["capacity_factor"] * k * n / E))
+            order = F.one_hot(g_ids.t().reshape(-1), E)       # (k*N,E)
+            place = ((torch.cumsum(order, 0) - order) * order).sum(-1)
+            keep[r0:r1, s0:s1] = (place < cap).reshape(k, n).t().reshape(
+                r1 - r0, s1 - s0, k)
     xt, gt = x.reshape(-1, D), (gates * keep).reshape(-1, k)
     it = ids.reshape(-1, k)
     out = relu2(xt, p["shared"]["w_up"], p["shared"]["w_down"], ops)
@@ -256,8 +265,10 @@ def moe(p, x, m, ops, groups):
 
 
 def attention(p, x, m, ops):
-    """Causal GQA without positions, `QUERY_BLOCK` queries at a time."""
+    """Causal GQA without positions, `QUERY_ROWS` queries at a time over
+    the rows."""
     B, T, _ = x.shape
+    qb = max(1, QUERY_ROWS // B)
     H, K = m["num_heads"], m["num_kv_heads"]
     hd = p["wq"].shape[-1]
     q = ops.mm("btd,dhk->bthk", x, p["wq"])
@@ -265,8 +276,8 @@ def attention(p, x, m, ops):
     v = ops.mm("btd,dhk->bthk", x, p["wv"]).repeat_interleave(H // K, dim=2)
     pos = torch.arange(T, device=x.device)
     outs = []
-    for q0 in range(0, T, QUERY_BLOCK):
-        q1 = min(T, q0 + QUERY_BLOCK)
+    for q0 in range(0, T, qb):
+        q1 = min(T, q0 + qb)
         s = ops.mm("bqhd,bkhd->bhqk", q[:, q0:q1], k[:, :q1]) / math.sqrt(hd)
         ok = pos[q0:q1, None] >= pos[None, :q1]
         w = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
@@ -284,15 +295,17 @@ def _layer(params, li):
     return cut(params["layers"][li])
 
 
-def hidden(params, m, tokens, ops, groups, last=0, balance=False):
+def hidden(params, m, tokens, ops, groups, last=0, balance=False,
+           batch=None):
     """Final-normed hidden states (B, T - last, D) of the positions from
-    `last` on, from a forward over `tokens`, block by block. With
+    `last` on, from a forward over `tokens`, block by block, the MoE routing
+    each `batch` rows (all, by default) on their own. With
     `balance`, each MoE block's correction bias is first set in `params`
     to even its loads over `tokens` (`even_loads`)."""
     x = params["embed"][tokens].float()
     eps = m.get("norm_eps", 1e-5)
     mixers = {"M": ("mamba2", lambda p, h: mamba2(p, h, m, ops)),
-              "E": ("moe", lambda p, h: moe(p, h, m, ops, groups)),
+              "E": ("moe", lambda p, h: moe(p, h, m, ops, groups, batch)),
               "*": ("attn", lambda p, h: attention(p, h, m, ops))}
     for li, kind in enumerate(m["layer_pattern"]):
         p = _layer(params, li)
@@ -315,18 +328,19 @@ def hidden(params, m, tokens, ops, groups, last=0, balance=False):
 
 
 @torch.no_grad()
-def served_logits(params, m, prompts, served, quant=None):
+def served_logits(params, m, prompts, served, quant=None, batch=None):
     """Logits (B, G, V) over the real vocabulary that predict each served
     token, from one forward over the prompts and the served tokens before
-    the last. Routing groups: the prompts together, then each generated
-    position across the rows, as the program routes its prefill and its
-    decode steps."""
+    the last. Routing groups, each `batch` rows (all, by default) on their
+    own, as the program served them: the prompts together, then each
+    generated position across the rows, as the program routes its prefill
+    and its decode steps."""
     B, P = prompts.shape
     G = served.shape[1]
     tokens = torch.cat([prompts, served[:, :G - 1]], dim=1)
     groups = [(0, P)] + [(P + j, P + j + 1) for j in range(G - 1)]
     ops = Ops(quant)
     with exact_float32():
-        h = hidden(params, m, tokens, ops, groups, last=P - 1)
+        h = hidden(params, m, tokens, ops, groups, last=P - 1, batch=batch)
         head = params.get("lm_head", params["embed"])[:m["vocab_size"]]
         return ops.mm("bgd,vd->bgv", h, head)

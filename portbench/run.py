@@ -9,9 +9,10 @@ measures whole steps or batches for the given seconds, then compares
 what the window produced with the plain float32 reference under
 portbench/reference/. The last line of standard output is one JSON
 object (correct, attempted, failed, metrics, device, [breakdown],
-checks); the numbers compared, each with its limit, are the last lines
-of standard error. With --trace 1 the metrics are the cell's per-layer
-metrics, read from torch.profiler and CUDA events over the window.
+diagnostics, checks); the numbers compared, each with its limit, are
+the last lines of standard error. With --trace 1 the metrics are the
+cell's per-layer metrics, read from torch.profiler and CUDA events over
+the window.
 Exits 2 without a result where there is no card, too few cards, no
 program under test, or a loaded module of jax or the JAX package.
 """

@@ -42,7 +42,8 @@ LIMITS = {"gap_mean": 0.01, "share_over_0.5": 0.1}
 # the device's trace
 ON_CPU = {"mamba2_share", "mamba2_scan_share", "moe_drop_share",
           "moe_dispatch_share.nemotron", "mfu.nemotron",
-          "moe_experts_hit.nemotron"}
+          "moe_experts_hit.nemotron", "decode_step_ms",
+          "prefill_tokens_per_s"}
 ON_DEVICE = {"idle_share.nemotron", "flash_roofline.nemotron",
              "decode_attn_roofline.nemotron"}
 
@@ -153,3 +154,30 @@ def test_fault_is_caught(root, fault):
             else faults.FAULTS["serve"][fault])
     _, last = _run(root, 42, fault=make)
     assert last["correct"] is False, last["checks"]
+
+
+def test_batches_in_one_forward_read_as_each_alone(root, monkeypatch):
+    """The reference's forward over several served batches, each routed as
+    its own, gives each batch's gaps as a forward over it alone; routing
+    the rows together would drop other choices."""
+    from portbench import generate
+    from portbench.reference import nemotron_h as ref
+    c = bench.Cell(root, TINY, 43, 0.0, False, device=torch.device("cpu"))
+    drv = c.driver()
+    params = ref.make_params(c.model, 43, "cpu")
+    pool = generate.prompt_batches(c.traffic, c.model["vocab_size"], 43,
+                                   "cpu")
+    done = drv.serve_batches(c, params, pool, count=3)
+    picks = [0, 1, 2]
+    joined = drv.gaps(c, params, pool, done, picks)
+    monkeypatch.setattr(ref, "BATCHES_A_FORWARD", 1)
+    alone = drv.gaps(c, params, pool, done, picks)
+    assert len(joined) == len(alone) == 3
+    for a, b in zip(joined, alone):
+        assert a.shape == b.shape == (4, 8)
+        assert torch.allclose(a, b, atol=1e-4), (a - b).abs().max()
+    prompts = torch.cat([pool[0], pool[1]])
+    served = torch.cat([done[0][3], done[1][3]])
+    each = ref.served_logits(params, c.model, prompts, served, batch=4)
+    whole = ref.served_logits(params, c.model, prompts, served)
+    assert not torch.allclose(each, whole, atol=1e-3)
